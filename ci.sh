@@ -2,7 +2,7 @@
 # CI gate: lint + compile + unit tests (the analogue of the reference's
 # check_clang_format workflow + ctest; .github/workflows/, CMakeLists.txt).
 # Usage: ./ci.sh            (CPU: lint + tests)
-#        ./ci.sh --tpu      (additionally drives the TPU verification sweep)
+#        ./ci.sh --gpu      (additionally runs chip_smoke.py on the GPU)
 set -euo pipefail
 cd "$(dirname "$0")"
 
@@ -14,14 +14,14 @@ else
 fi
 
 echo "== compile =="
-python -m compileall -q portfft_tpu tests scripts bench.py __graft_entry__.py
+python -m compileall -q portfft_tpu tests scripts bench.py chip_smoke.py __graft_entry__.py
 
 echo "== unit tests (CPU, 8-device virtual mesh) =="
 python -m pytest tests/ -q
 
-if [[ "${1:-}" == "--tpu" ]]; then
-  echo "== TPU verification sweep =="
-  python scripts/verify_tpu.py
+if [[ "${1:-}" == "--gpu" ]]; then
+  echo "== on-card smoke test =="
+  python chip_smoke.py
 fi
 
 echo "CI OK"

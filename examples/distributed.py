@@ -1,6 +1,6 @@
 """Distributed large-N transform over a device mesh (run with
 XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu for a
-virtual mesh, or on a real multi-chip TPU slice)."""
+virtual mesh, or on a host with several GPUs)."""
 
 import os
 import sys

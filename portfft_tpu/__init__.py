@@ -1,9 +1,8 @@
-"""portfft_tpu — a TPU-native batched FFT framework.
+"""portfft_tpu — a batched FFT framework in JAX.
 
 From-scratch rebuild of the capabilities of portFFT
-(codeplaysoftware/portFFT, reference at /root/reference) on the TPU compute
-stack: a describe → commit (plan) → execute API over JAX/XLA with Pallas
-kernels on the hot paths.
+(codeplaysoftware/portFFT): a describe → commit (plan) → execute API over
+JAX/XLA, with every transform level run as DFT-matrix matmuls.
 
 Quick start::
 
@@ -30,7 +29,6 @@ from .enums import (
 from .exceptions import (
     InternalError,
     InvalidConfiguration,
-    OutOfVmemError,
     PortFFTError,
     UnsupportedConfiguration,
 )
@@ -46,7 +44,6 @@ __all__ = [
     "InvalidConfiguration",
     "Layout",
     "Level",
-    "OutOfVmemError",
     "Placement",
     "PortFFTError",
     "UnsupportedConfiguration",

@@ -22,7 +22,6 @@ the compiled computation so XLA reuses its memory on device.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional
 
@@ -42,43 +41,6 @@ from .enums import inv as _inv
 _SIGN = {Direction.FORWARD: -1, Direction.BACKWARD: +1}
 
 
-def _is_kernel_rejection(exc: BaseException) -> bool:
-    """True when an exception is a TPU kernel-compiler rejection (Mosaic /
-    Pallas lowering / VMEM exhaustion) rather than a bug in our code.  Only
-    these trigger the per-entry XLA fallback; everything else re-raises
-    (the reference's retry chain similarly narrows to JIT-build failures,
-    committed_descriptor_impl.hpp:568-572)."""
-    name = type(exc).__name__
-    msg = str(exc)
-    compile_pats = (
-        "Mosaic",
-        "mosaic",
-        "Pallas",
-        "pallas",
-        "block shape",
-        "vmem",
-        "VMEM",
-        "RESOURCE_EXHAUSTED",
-        "Ran out of memory",
-        "remote_compile",
-        "tpu_custom_call",
-    )
-    if name in ("LoweringError", "VerificationError"):
-        return True
-    return any(p in msg for p in compile_pats)
-
-
-def _is_vmem_exhaustion(exc: BaseException) -> bool:
-    """True when an exception specifically reports on-chip memory
-    exhaustion (VMEM overflow / RESOURCE_EXHAUSTED), the TPU analogue of the
-    reference's out_of_local_memory_error (common/exceptions.hpp:73-77)."""
-    msg = str(exc)
-    # only genuine on-chip (VMEM) messages qualify: HBM allocation
-    # failures also say RESOURCE_EXHAUSTED / "Ran out of memory" but must
-    # not be rebranded as the typed unsupported-configuration error.
-    return "vmem" in msg or "VMEM" in msg
-
-
 class CommittedDescriptor:
     """A planned, compiled FFT ready for repeated execution."""
 
@@ -86,47 +48,41 @@ class CommittedDescriptor:
         self,
         descriptor,
         device=None,
-        use_pallas: Optional[bool] = None,
         matmul_precision=None,
         emulate_fp64: Optional[bool] = None,
     ):
         from .utils.logging import trace
 
         self.descriptor = descriptor
-        # MXU precision for factor matmuls (None -> HIGHEST).  "high" is the
-        # fast mode: ~2x MXU throughput, still within the test tolerance.
+        # Precision of the factor matmuls (None -> HIGHEST; see
+        # ops/xla_fft._PRECISIONS for what the other modes mean).
         import os as _os
 
         if matmul_precision is None:
             matmul_precision = _os.environ.get("PORTFFT_MATMUL_PRECISION")
+        if (isinstance(matmul_precision, str)
+                and matmul_precision.lower() not in xla_fft._PRECISIONS):
+            raise InvalidConfiguration(
+                f"matmul_precision {matmul_precision!r} is not one of "
+                f"{sorted(xla_fft._PRECISIONS)}"
+            )
         self.matmul_precision = matmul_precision
         self.config = resolve_device_config(device)
         self.precision = np.dtype(descriptor.precision)
         itemsize = self.precision.itemsize
 
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        self.use_pallas = use_pallas
-
-        # fp64 requires a device with native double support (the reference
-        # gates on the fp64 aspect, fft_test_utils.hpp:441-448); TPUs have
-        # none, and jax only carries float64 with x64 mode enabled.  On TPU
-        # an opt-in double-double emulation (ops/df64.py, ~2^-48 effective
-        # precision) stands in: commit(emulate_fp64=True) or
-        # PORTFFT_EMULATE_FP64=1.
+        # fp64 runs natively (the reference gates on the fp64 aspect,
+        # fft_test_utils.hpp:441-448); jax only carries float64 with x64
+        # mode enabled.  An opt-in double-double emulation (ops/df64.py,
+        # ~2^-48 effective precision) stands in on devices without it:
+        # commit(emulate_fp64=True) or PORTFFT_EMULATE_FP64=1.
         self._df64 = False
         if self.precision == np.float64:
             if emulate_fp64 is None:
                 from .utils.logging import _env_flag
 
                 emulate_fp64 = _env_flag("PORTFFT_EMULATE_FP64")
-            if jax.default_backend() == "tpu" or emulate_fp64:
-                if not emulate_fp64:
-                    raise UnsupportedConfiguration(
-                        "fp64 transforms are not natively supported on TPU "
-                        "devices; commit(emulate_fp64=True) opts into the "
-                        "double-double emulation (~2^-48 precision)"
-                    )
+            if emulate_fp64:
                 from .enums import Domain as _D
 
                 if descriptor.domain == _D.REAL:
@@ -174,8 +130,8 @@ class CommittedDescriptor:
         }
 
         if self._df64:
-            # emulated-fp64 path: its own hi/lo split tables; the normal
-            # f64 bank would ship float64 arrays the TPU cannot hold
+            # emulated-fp64 path: its own hi/lo split f32 tables in place
+            # of the float64 bank
             from .ops import df64 as _df64mod
 
             self._df64_bank: dict = {}
@@ -190,12 +146,10 @@ class CommittedDescriptor:
                         self._df64_bank[f"n{ln}s{sign}_{name}"] = jnp.asarray(
                             arr
                         )
-            self._raw_fast = {}
             self._bank = None
             self._bank_keys = {}
             self._bank_arrays = {}
             self._compiled = {}
-            self._xla_only_keys = set()
             trace(
                 "committed (df64):",
                 {n: self._df64_chains.get((n, -1)) for n in set(descriptor.lengths)},
@@ -210,19 +164,12 @@ class CommittedDescriptor:
         for sign in (-1, +1):
             for plan in self.plans.values():
                 xla_fft.collect_bank_keys(plan, sign, self._bank, self._bank_keys)
-            # Multi-dim: bank full DFT matrices for the non-contiguous axes
-            # so the in-VMEM column-FFT pass can run them as one matmul
-            # (ops/pallas_global.py fft_axis_m2_call).
-            for ln in set(descriptor.lengths[:-1]):
-                if 1 < ln <= 512:
-                    self._bank_keys[("W", ln, sign)] = self._bank.dft(ln, sign)
         # REAL domain, even last axis: the packed half-length transform
         # (N/2-point complex FFT + untangle) replaces the zero-imaginary
         # full C2C — half the transform work (classic rfft packing; the
         # reference throws for REAL, committed_descriptor.hpp:134-137).
         # Gated at n ≥ 1024: below that the even/odd strided slicing and
-        # untangle passes cost more than the halved matmuls (measured:
-        # N=32 real dropped 3× under half-length).
+        # untangle passes cost more than the halved matmuls save.
         from .enums import Domain as _Dom
 
         nlast = descriptor.lengths[-1]
@@ -241,24 +188,12 @@ class CommittedDescriptor:
                 self._bank_keys[("R", nlast, sign)] = (
                     self._bank.rfft_untangle(nlast, sign)
                 )
-        # Raw fast paths: 1D PACKED interleaved fp32 transforms bypass the
-        # generic gather/compute/scatter with single-buffer kernels
-        # (fastpath.py).
-        from . import fastpath
-
-        self._raw_fast = fastpath.register(self)
-
         self._bank_arrays = self._bank.device_arrays(device)
 
         self._compiled: dict = {}
-        #: entry keys pinned to the XLA executor after a kernel-compiler
-        #: rejection (see _run); other keys keep their Pallas kernels.
-        self._xla_only_keys: set = set()
         trace(
             "committed:",
             {n: p.describe() for n, p in self.plans.items()},
-            f"device={self.config.name}",
-            f"pallas={self.use_pallas}",
         )
 
     # ------------------------------------------------------------------
@@ -292,10 +227,10 @@ class CommittedDescriptor:
 
         if self._df64:
             # Traceable df64: the caller holds double-double data as hi/lo
-            # f32 plane pairs (f64 values cannot cross the TPU device
-            # boundary, so the split itself cannot be traced on device) —
-            # pass x=(re_hi, re_lo), x_imag=(im_hi, im_lo) in canonical
-            # (batch, *lengths) shape; returns the matching pair-of-pairs.
+            # f32 plane pairs (the f64 -> 2xf32 split is host-side numpy,
+            # ops/df64.split_f64) — pass x=(re_hi, re_lo),
+            # x_imag=(im_hi, im_lo) in canonical (batch, *lengths) shape;
+            # returns the matching pair-of-pairs.
             # Composes with user jit/scan exactly like the fp32 apply().
             if self.descriptor.domain != Domain.COMPLEX:
                 raise UnsupportedConfiguration(
@@ -311,8 +246,7 @@ class CommittedDescriptor:
                 raise UnsupportedConfiguration(
                     "apply() on an emulated-fp64 plan takes hi/lo f32 "
                     "plane pairs: x=(re_hi, re_lo), x_imag=(im_hi, im_lo) "
-                    "— the f64<->2xf32 split cannot cross the TPU device "
-                    "boundary inside a traced program"
+                    "(split on the host with ops.df64.split_f64)"
                 )
             d = self.descriptor
             shape = (d.number_of_transforms, *d.lengths)
@@ -345,18 +279,6 @@ class CommittedDescriptor:
     def plan_description(self) -> dict:
         """Human-readable plan summary (one entry per dimension length)."""
         return {n: p.describe() for n, p in self.plans.items()}
-
-    def autotune(self, iters: int = 5):
-        """Measure this plan's raw-fast-path kernel variants on the attached
-        device and persist + apply the fastest (tuning.py).  One kernel
-        compile per variant (~20-40 s on TPU); results are cached across
-        processes, keyed by device and shape.  The analogue of the
-        reference's retry chain over subgroup sizes
-        (committed_descriptor_impl.hpp:545-573) with 'fastest measured'
-        replacing 'first that builds'."""
-        from . import tuning
-
-        return tuning.autotune(self, iters=iters)
 
     def clone(self) -> "CommittedDescriptor":
         """Copy sharing the built plan, twiddle arrays and compiled
@@ -420,8 +342,8 @@ class CommittedDescriptor:
         built on device instead of being baked as a (batch, N) constant
         into the executable (and shipped host->device per compile).  The
         reference's counterpart keeps arbitrary strides inside kernels via
-        md_view (memory_views.hpp:126-229); here the transient device
-        array is the TPU-shaped equivalent.  Returns None when an index
+        md_view (memory_views.hpp:126-229); here a transient device array
+        stands in.  Returns None when an index
         could overflow int32 (pathological layouts take the host path)."""
         if self._index_bound(direction) >= 2**31:
             return None
@@ -450,9 +372,9 @@ class CommittedDescriptor:
         Regularity lets the gather/scatter run as reshape + strided slice /
         masked merge (pure streaming ops, no index arrays): the reference
         moves such layouts inside kernels via md_view strided copies
-        (workitem_dispatcher.hpp:162-244, memory_views.hpp:126-229); the
-        previous materialized-index gather built a (batch, N) int array —
-        ~1 GB at bench scale (VERDICT round 2, missing #2)."""
+        (workitem_dispatcher.hpp:162-244, memory_views.hpp:126-229); a
+        materialized-index gather would build a (batch, N) int array —
+        ~1 GB at bench scale."""
         d = self.descriptor
         # REAL descriptors have different element grids per domain (the
         # spectrum side is n//2+1) — the rectangle must be built from the
@@ -564,18 +486,6 @@ class CommittedDescriptor:
     # Core traced computation
     # ------------------------------------------------------------------
 
-    def _leaf_fn(self, direction: Direction):
-        if not self.use_pallas:
-            return None
-        from .ops import pallas_fft
-
-        return functools.partial(
-            pallas_fft.leaf_dispatch,
-            bank_keys=self._bank_keys,
-            config=self.config,
-            precision=self.matmul_precision,
-        )
-
     def _workspace_len(self) -> int:
         """Largest per-transform intermediate length in the plan tree
         (Bluestein's padded convolution dominates when present)."""
@@ -592,42 +502,51 @@ class CommittedDescriptor:
             total = max(total, walk(p) * (self.descriptor.get_flattened_length() // n))
         return total
 
+    def chunk_rows(self, batch: int) -> int:
+        """Batch rows per ``lax.map`` chunk when :meth:`_core` runs
+        ``batch`` transforms (``batch`` itself when it runs unchunked):
+        the largest divisor of ``batch`` whose estimated working set —
+        16 bytes of intermediates per scalar of the widest plan level —
+        stays within ``config.hbm_chunk_bytes``."""
+        per_tx = 16 * self.precision.itemsize * self._workspace_len()
+        budget = self.config.hbm_chunk_bytes
+        if batch <= 1 or per_tx * batch <= budget:
+            return batch
+        chunk = max(1, budget // per_tx)
+        while chunk > 1 and batch % chunk:
+            chunk -= 1
+        return chunk
+
     def _core(self, xr, xi, direction: Direction, bank):
         """(batch, *lengths) re/im -> transformed re/im, scale applied.
 
-        Batches whose intermediate working set exceeds the HBM chunk budget
-        run under ``lax.map`` over batch chunks — memory is reused across
-        chunks inside one executable (reference analogue: the global
-        engine's L2-sized batch chunks, global_dispatcher.hpp:343).
+        Batches whose intermediate working set exceeds the chunk budget
+        run under ``lax.map`` over batch chunks (:meth:`chunk_rows`) —
+        memory is reused across chunks inside one executable (reference
+        analogue: the global engine's L2-sized batch chunks,
+        global_dispatcher.hpp:343).
 
         Multi-dimensional dispatch: separable per-axis transforms, last
         (contiguous) axis first (reference dispatch_dimensions,
         committed_descriptor_impl.hpp:899-950).
         """
-        d = self.descriptor
         batch = xr.shape[0]
-        per_tx = 16 * self.precision.itemsize * self._workspace_len()
-        budget = self.config.hbm_chunk_bytes
-        if batch > 1 and per_tx * batch > budget:
-            chunk = max(1, budget // per_tx)
-            while chunk > 1 and batch % chunk:
-                chunk -= 1
-            if chunk < batch:
-                nchunks = batch // chunk
-                shape = xr.shape
-                xr3 = xr.reshape(nchunks, chunk, *shape[1:])
-                xi3 = xi.reshape(nchunks, chunk, *shape[1:])
-                yr3, yi3 = jax.lax.map(
-                    lambda ab: self._core_inner(ab[0], ab[1], direction, bank),
-                    (xr3, xi3),
-                )
-                return yr3.reshape(shape), yi3.reshape(shape)
+        chunk = self.chunk_rows(batch)
+        if chunk < batch:
+            nchunks = batch // chunk
+            shape = xr.shape
+            xr3 = xr.reshape(nchunks, chunk, *shape[1:])
+            xi3 = xi.reshape(nchunks, chunk, *shape[1:])
+            yr3, yi3 = jax.lax.map(
+                lambda ab: self._core_inner(ab[0], ab[1], direction, bank),
+                (xr3, xi3),
+            )
+            return yr3.reshape(shape), yi3.reshape(shape)
         return self._core_inner(xr, xi, direction, bank)
 
     def _core_inner(self, xr, xi, direction: Direction, bank):
         d = self.descriptor
         sign = _SIGN[direction]
-        leaf = self._leaf_fn(direction)
         ndims = len(d.lengths)
         for axis in range(ndims - 1, -1, -1):
             n = d.lengths[axis]
@@ -635,50 +554,10 @@ class CommittedDescriptor:
                 continue
             plan = self.plans[n]
             if axis != ndims - 1:
-                # Non-contiguous axis: prefer the in-VMEM column-FFT pass
-                # (no HBM transposes); fall back to moveaxis + leaf.
-                if self.use_pallas and xr.dtype == jnp.float32:
-                    from .ops import pallas_global
-
-                    shape = xr.shape
-                    trailing = int(np.prod(shape[2 + axis :]))
-                    xr2 = xr.reshape(*shape[: 1 + axis], n, trailing)
-                    xi2 = xi.reshape(*shape[: 1 + axis], n, trailing)
-                    res = pallas_global.fft_axis_m2_call(
-                        xr2,
-                        xi2,
-                        plan,
-                        sign,
-                        self._bank_keys,
-                        bank,
-                        self.config,
-                        self.matmul_precision,
-                    )
-                    if res is None:
-                        res = pallas_global.fft_axis_m2_fused_call(
-                            xr2,
-                            xi2,
-                            plan,
-                            sign,
-                            self._bank_keys,
-                            bank,
-                            self.config,
-                            self.matmul_precision,
-                        )
-                    if res is not None:
-                        xr = res[0].reshape(shape)
-                        xi = res[1].reshape(shape)
-                        continue
                 xr = jnp.moveaxis(xr, 1 + axis, -1)
                 xi = jnp.moveaxis(xi, 1 + axis, -1)
             xr, xi = xla_fft.exec_plan(
-                xr,
-                xi,
-                plan,
-                sign,
-                self._bank_keys,
-                bank,
-                leaf,
+                xr, xi, plan, sign, self._bank_keys, bank,
                 self.matmul_precision,
             )
             if axis != ndims - 1:
@@ -703,7 +582,6 @@ class CommittedDescriptor:
         (b, ..., n//2+1)."""
         d = self.descriptor
         sign = -1
-        leaf = self._leaf_fn(Direction.FORWARD)
         n = d.lengths[-1]
         h = n // 2
         if ("R", n, sign) in self._bank_keys:
@@ -711,7 +589,7 @@ class CommittedDescriptor:
             # untangle X[k] = E[k] + W^k·O[k] (k ≤ h, W = e^{-2πi/n})
             zr, zi = xla_fft.exec_plan(
                 x[..., 0::2], x[..., 1::2], self.plans[h], sign,
-                self._bank_keys, bank, leaf, self.matmul_precision,
+                self._bank_keys, bank, self.matmul_precision,
             )
             rr = jnp.roll(jnp.flip(zr, -1), 1, -1)  # Z[(h-k) mod h]
             ri = jnp.roll(jnp.flip(zi, -1), 1, -1)
@@ -738,7 +616,6 @@ class CommittedDescriptor:
                 sign,
                 self._bank_keys,
                 bank,
-                leaf,
                 self.matmul_precision,
             )
             xr = xr[..., : h + 1]
@@ -752,7 +629,7 @@ class CommittedDescriptor:
             xr = jnp.moveaxis(xr, 1 + axis, -1)
             xi = jnp.moveaxis(xi, 1 + axis, -1)
             xr, xi = xla_fft.exec_plan(
-                xr, xi, self.plans[ln], sign, self._bank_keys, bank, leaf,
+                xr, xi, self.plans[ln], sign, self._bank_keys, bank,
                 self.matmul_precision,
             )
             xr = jnp.moveaxis(xr, -1, 1 + axis)
@@ -767,7 +644,6 @@ class CommittedDescriptor:
         """Half-spectrum planes (b, ..., n//2+1) -> (b, *lengths) real."""
         d = self.descriptor
         sign = +1
-        leaf = self._leaf_fn(Direction.BACKWARD)
         n = d.lengths[-1]
         h = n // 2
         # other axes first (inverse of the forward ordering)
@@ -779,7 +655,7 @@ class CommittedDescriptor:
             xr = jnp.moveaxis(xr, 1 + axis, -1)
             xi = jnp.moveaxis(xi, 1 + axis, -1)
             xr, xi = xla_fft.exec_plan(
-                xr, xi, self.plans[ln], sign, self._bank_keys, bank, leaf,
+                xr, xi, self.plans[ln], sign, self._bank_keys, bank,
                 self.matmul_precision,
             )
             xr = jnp.moveaxis(xr, -1, 1 + axis)
@@ -801,7 +677,7 @@ class CommittedDescriptor:
             zr = e2r - o2i
             zi = e2i + o2r
             zr, zi = xla_fft.exec_plan(
-                zr, zi, self.plans[h], sign, self._bank_keys, bank, leaf,
+                zr, zi, self.plans[h], sign, self._bank_keys, bank,
                 self.matmul_precision,
             )
             fr = jnp.stack([zr, zi], axis=-1).reshape(*zr.shape[:-1], n)
@@ -815,7 +691,7 @@ class CommittedDescriptor:
             fr = jnp.concatenate([xr, tail_r], axis=-1)
             fi = jnp.concatenate([xi, tail_i], axis=-1)
             fr, fi = xla_fft.exec_plan(
-                fr, fi, self.plans[n], sign, self._bank_keys, bank, leaf,
+                fr, fi, self.plans[n], sign, self._bank_keys, bank,
                 self.matmul_precision,
             )
         scale = d.backward_scale
@@ -829,82 +705,21 @@ class CommittedDescriptor:
 
     @staticmethod
     def _deinterleave(raw):
-        """(2M,) interleaved scalars -> two (M,) planes, TPU-layout-safe.
-
-        On TPU, large aligned buffers go through the Pallas transpose-based
-        kernel (ops/pallas_io.py).  The XLA fallback views the buffer as
-        (X, 256) rows — 128 complex pairs each — and takes strided lane
-        slices; a naive ``reshape(M, 2)`` would pad the 2-wide lane
-        dimension to 128 (64× memory blowup)."""
-        m = raw.shape[0] // 2
-        if jax.default_backend() == "tpu":
-            from .ops import pallas_io
-
-            if pallas_io.supported(m):
-                return pallas_io.deinterleave(raw)
-            if m >= pallas_io.TILE:
-                # Trailing-pad up to the kernel tile (cheap on TPU) instead
-                # of the XLA strided-slice path: at 100M+ elements the XLA
-                # form is a compile-time blowup (seen at the Bluestein
-                # bench config N=65537·b=2048, odd-N buffers).
-                mp = -(-m // pallas_io.TILE) * pallas_io.TILE
-                re, im = pallas_io.deinterleave(
-                    jnp.pad(raw, (0, 2 * (mp - m)))
-                )
-                return re[:m], im[:m]
-        pad = (-m) % 128
-        if pad:
-            raw = jnp.pad(raw, (0, 2 * pad))
-        rows = raw.reshape(-1, 256)
-        re = rows[:, 0::2].reshape(-1)
-        im = rows[:, 1::2].reshape(-1)
-        if pad:
-            re = re[:m]
-            im = im[:m]
-        return re, im
+        """(2M,) interleaved scalars -> two (M,) planes."""
+        return raw[0::2], raw[1::2]
 
     @staticmethod
     def _interleave(re, im):
-        """Two (M,) planes -> (2M,) interleaved.
-
-        TPU: Pallas kernel for large aligned sizes; interior-padded
-        ``lax.pad`` adds otherwise (which the TPU compiler cannot handle at
-        large sizes — hence the kernel)."""
-        m = re.shape[0]
-        if jax.default_backend() == "tpu":
-            from .ops import pallas_io
-
-            if pallas_io.supported(m):
-                return pallas_io.interleave(re, im)
-            if m >= pallas_io.TILE:
-                # see _deinterleave: trailing pad beats the interior-padded
-                # lax.pad form, which blows up compilation at size
-                mp = -(-m // pallas_io.TILE) * pallas_io.TILE
-                out = pallas_io.interleave(
-                    jnp.pad(re, (0, mp - m)), jnp.pad(im, (0, mp - m))
-                )
-                return out[: 2 * m]
-        pad = (-m) % 128
-        if pad:
-            re = jnp.pad(re, (0, pad))
-            im = jnp.pad(im, (0, pad))
-        re2 = re.reshape(-1, 128)
-        im2 = im.reshape(-1, 128)
-        cfg_r = [(0, 0, 0), (0, 1, 1)]  # [r, 0, r, 0, ...]
-        cfg_i = [(0, 0, 0), (1, 0, 1)]  # [0, i, 0, i, ...]
-        zero = jnp.zeros((), dtype=re.dtype)
-        rows = jax.lax.pad(re2, zero, cfg_r) + jax.lax.pad(im2, zero, cfg_i)
-        out = rows.reshape(-1)
-        return out[: 2 * m] if pad else out
+        """Two (M,) planes -> (2M,) interleaved."""
+        return jnp.stack([re, im], axis=-1).reshape(-1)
 
     def _traced_interleaved(self, direction: Direction):
         """Interleaved storage, raw-scalar device buffers.
 
         The device-side representation of an interleaved complex buffer is a
         flat float array of 2·count scalars — exactly the reference's
-        ``Scalar*`` view (committed_descriptor_impl.hpp:1103-1110).  Complex
-        dtypes never cross the device boundary (some TPU runtimes reject
-        them); complex numpy inputs are reinterpreted host-side (zero-copy).
+        ``Scalar*`` view (committed_descriptor_impl.hpp:1103-1110); complex
+        numpy inputs are reinterpreted host-side (zero-copy).
         """
 
         def fn(raw_in, raw_out, bank):
@@ -972,58 +787,8 @@ class CommittedDescriptor:
         return self._compiled[key]
 
     def _run(self, key, builder, donate, *args):
-        """Execute a compiled entry point; if the TPU kernel compiler
-        rejects a Pallas kernel at this shape, fall back to the pure-XLA
-        executor for THIS entry key only — other shapes/directions of the
-        plan keep their Pallas kernels, and non-compile bugs re-raise (the
-        analogue of the reference's per-kernel JIT-retry chain,
-        committed_descriptor_impl.hpp:568-572)."""
-        from .exceptions import OutOfVmemError
-
-        try:
-            fn = self._get_compiled(key, builder, donate)
-            return fn(*args)
-        except Exception as exc:
-            if (
-                not self.use_pallas
-                or key in self._xla_only_keys
-                or not _is_kernel_rejection(exc)
-            ):
-                # no fallback remains: surface on-chip memory exhaustion as
-                # the typed error (reference out_of_local_memory_error)
-                if _is_vmem_exhaustion(exc):
-                    raise OutOfVmemError(
-                        f"entry {key!r} exhausts on-chip memory: "
-                        f"{str(exc)[:200]}"
-                    ) from exc
-                raise
-            from .utils.logging import warn
-
-            warn(
-                f"pallas executor rejected at {key!r} "
-                f"({str(exc)[:120]}); retrying this entry on the XLA path"
-            )
-            self._xla_only_keys.add(key)
-            self._compiled.pop(key, None)
-            prev = self.use_pallas
-            self.use_pallas = False
-            try:
-                fn = self._get_compiled(key, builder, donate)
-                return fn(*args)
-            except Exception as exc2:
-                if donate and "deleted" in str(exc2):
-                    # the failed first executable already consumed a
-                    # donated input; surface the ORIGINAL failure, not
-                    # the confusing deleted-array retry error
-                    raise exc
-                if _is_vmem_exhaustion(exc2):
-                    raise OutOfVmemError(
-                        f"entry {key!r} exhausts device memory on both the "
-                        f"Pallas and XLA executors: {str(exc2)[:200]}"
-                    ) from exc2
-                raise
-            finally:
-                self.use_pallas = prev
+        """Execute the compiled entry point ``key`` (built on first use)."""
+        return self._get_compiled(key, builder, donate)(*args)
 
     # ------------------------------------------------------------------
     # Emulated-fp64 compute (double-double; ops/df64.py)
@@ -1076,9 +841,8 @@ class CommittedDescriptor:
         *lengths) without materialized index arrays: PACKED and
         BATCH_INTERLEAVED are views/reshapes, regular 1D strides are a
         strided numpy view, only irregular layouts fall back to the index
-        walk.  (The hi/lo f32 split must stay host-side — f64 values
-        cannot cross the TPU device boundary — but everything after it is
-        the jitted df64 core.)"""
+        walk.  (The hi/lo f32 split is host-side numpy; everything after
+        it is the jitted df64 core.)"""
         d = self.descriptor
         lengths = d.domain_lengths(direction)
         layout = get_layout(d, direction)
@@ -1322,47 +1086,6 @@ class CommittedDescriptor:
             )
         return self._compute_interleaved(direction, x, out)
 
-    def _try_real_raw(self, direction, flat_in):
-        """Run the REAL-domain raw fast path (fastpath realf/realb entries:
-        half-length raw kernels + one Pallas un/retangle pass), or None to
-        fall back to the plane executor.  Mirrors the per-entry rejection
-        discipline of _compute_interleaved."""
-        entry = self._raw_fast.get(direction)
-        if entry is None or entry[0] not in (
-            "realf", "realb", "realsf", "realsb"
-        ):
-            return None
-        from . import fastpath
-
-        traced = fastpath.build_fn(self, direction, entry, flat_in.shape[0])
-        if traced is None:
-            return None
-        key = ("rawreal", direction, flat_in.shape)
-        try:
-            compiled = self._get_compiled(key, lambda: traced, donate=())
-            return compiled(flat_in, self._bank_arrays)
-        except fastpath.RawFastUnavailable:
-            self._compiled.pop(key, None)
-            self._raw_fast.pop(direction, None)
-        except Exception as exc:
-            if not _is_kernel_rejection(exc):
-                raise
-            from . import tuning
-            from .utils.logging import warn
-
-            demoted = tuning.mark_stale_if_tuned(self, entry[0], str(exc))
-            warn(
-                f"REAL raw fast path disabled for {direction}: "
-                f"{str(exc)[:200]}"
-                + (
-                    "; stale tuned entry marked — re-run scripts/tune.py"
-                    if demoted else ""
-                )
-            )
-            self._compiled.pop(key, None)
-            self._raw_fast.pop(direction, None)
-        return None
-
     def _compute_real(self, direction, x, x_imag, out, out_imag):
         """R2C forward / C2R backward dispatch (out-of-place only).
 
@@ -1414,13 +1137,6 @@ class CommittedDescriptor:
                 )
             # interleaved
             was_numpy = isinstance(x, np.ndarray)
-            result = self._try_real_raw(
-                Direction.FORWARD, real_in
-            ) if out is None else None
-            if result is not None:
-                if was_numpy:
-                    return np.asarray(result).view(self._complex_dtype())
-                return result
             if d.placement == Placement.IN_PLACE:
                 # FFTW padded layout: the half spectrum overwrites the
                 # padded real buffer (validation pinned the distances)
@@ -1462,10 +1178,6 @@ class CommittedDescriptor:
                     "INTERLEAVED_COMPLEX input is a single buffer"
                 )
             raw_in, _ = self._to_raw(x)
-            if out is None and raw_in.shape[0] >= 2 * cplx_count:
-                result = self._try_real_raw(Direction.BACKWARD, raw_in)
-                if result is not None:
-                    return result
             in_re, in_im = self._deinterleave(raw_in)
         if in_re.shape[0] < cplx_count:
             raise InvalidConfiguration(
@@ -1537,50 +1249,6 @@ class CommittedDescriptor:
                 f"input buffer has {flat_in.shape[0] // 2} complex elements, "
                 f"needs {need_in}"
             )
-
-        entry = self._raw_fast.get(direction)
-        if entry is not None and out is None:
-            from . import fastpath
-
-            traced = fastpath.build_fn(
-                self, direction, entry, flat_in.shape[0]
-            )
-            if traced is not None:
-                donate = (0,) if d.placement == Placement.IN_PLACE else ()
-                key = ("rawfast", direction, flat_in.shape)
-                try:
-                    compiled = self._get_compiled(
-                        key,
-                        lambda: traced,
-                        donate=donate if jax.default_backend() != "cpu" else (),
-                    )
-                    return self._from_raw(
-                        compiled(flat_in, self._bank_arrays), kind
-                    )
-                except fastpath.RawFastUnavailable:
-                    # shape-deterministic decline: drop the entry so later
-                    # calls skip the doomed re-trace on the hot path
-                    self._compiled.pop(key, None)
-                    self._raw_fast.pop(direction, None)
-                except Exception as exc:
-                    if not _is_kernel_rejection(exc):
-                        raise
-                    from . import tuning
-                    from .utils.logging import warn
-
-                    demoted = tuning.mark_stale_if_tuned(
-                        self, entry[0], str(exc)
-                    )
-                    warn(
-                        f"raw fast path disabled for {direction}: "
-                        f"{str(exc)[:200]}"
-                        + (
-                            "; stale tuned entry marked — re-run "
-                            "scripts/tune.py" if demoted else ""
-                        )
-                    )
-                    self._compiled.pop(key, None)
-                    self._raw_fast.pop(direction, None)
 
         need_out = d.get_output_count(direction)
         in_place = d.placement == Placement.IN_PLACE

@@ -1,108 +1,166 @@
-"""Device configuration and tuning knobs.
+"""Planner knobs, published device peaks, and the compile cache.
 
-TPU analogue of the reference's compile-time CMake cache variables
+The analogue of the reference's compile-time CMake cache variables
 (CMakeLists.txt:38-59 — PORTFFT_REGISTERS_PER_WI, PORTFFT_SUBGROUP_SIZES,
-PORTFFT_VEC_LOAD_BYTES, ...) plus commit-time device introspection
-(committed_descriptor_impl.hpp:716-731: compute units, subgroup sizes, local
-memory, LLC size).  Here the introspected quantities are the TPU generation's
-lane/sublane geometry, VMEM capacity and HBM bandwidth, resolved from
-``jax.devices()`` at commit time and overridable for tests.
+PORTFFT_VEC_LOAD_BYTES, ...).  :class:`DeviceConfig` holds the values the
+planner decides levels and factor chains by; :data:`PEAKS` holds the
+published rates a benchmark divides its own times by, keyed by the exact
+``device_kind`` JAX reports.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
+import os
+import subprocess
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceConfig:
-    """Hardware parameters that shape the plan."""
+    """Planner knobs: the sizes at which levels and factor chains change.
 
-    name: str = "tpu"
-    #: Vector lane count (last-dim tile) — 128 on all current TPUs.
-    lane: int = 128
-    #: Sublane count (second-to-last-dim tile) for fp32.
-    sublane: int = 8
-    #: Usable VMEM per core in bytes (hardware ~16 MiB; leave headroom for
-    #: Mosaic's own buffers and semaphores).
-    vmem_bytes: int = 16 * 2**20
-    #: Fraction of VMEM the planner may budget for one kernel's working set.
-    vmem_budget_fraction: float = 0.55
-    #: Peak HBM bandwidth in GB/s (roofline denominator only).
-    hbm_gbps: float = 819.0
-    #: Largest DFT factor solved as a single MXU matmul.  128 fills the MXU's
-    #: contraction dimension exactly; every factor ≤ this is one matmul pass.
+    The defaults give the factor chains the library was first tuned with
+    (tests/test_config.py pins the chains of the benchmark sizes).
+    Retuning them for a device is a measured change of its own."""
+
+    #: Largest DFT factor contracted by one matmul stage of a chain.
     max_factor: int = 128
     #: Sizes at or below this are planned as ONE direct DFT matmul
-    #: (level DIRECT), regardless of primality.  512 keeps the tiny-split
-    #: fused kernels (which Mosaic compiles poorly) out of the plan space
-    #: and lets the two-pass global engine cover n up to 512·512 = 262144.
+    #: (level DIRECT), regardless of primality.
     direct_threshold: int = 512
-    #: Any prime factor above this triggers the Bluestein chirp-z path.
-    bluestein_threshold: int = 128
-    #: Preferred batch-tile (rows per Pallas grid step) for fused kernels.
-    batch_tile: int = 128
-    #: HBM working-set budget per executed batch chunk; bigger transforms
-    #: run under ``lax.map`` over batch chunks (the analogue of the
+    #: Second factor of the two-stage FUSED chain [n / w, w]; it also
+    #: sets the single-pass cap ``2·max_factor·w`` above which Bluestein
+    #: may pick a 9·2^k convolution length.
+    two_stage_width: int = 128
+    #: Rows per batch tile assumed when the planner sizes a FUSED chain's
+    #: working set.
+    fused_rows: int = 8
+    #: A chain whose working set (planner.fused_working_set_bytes) stays
+    #: within this many bytes is planned FUSED; larger sizes go GLOBAL.
+    fused_budget_bytes: int = 9227468
+    #: Bound on the first pass of a GLOBAL split G1 = a·w with G2 DIRECT
+    #: (planner._global_split, preference 2).
+    global_pass_budget_bytes: int = 12 << 20
+    #: Working-set budget per executed batch chunk; bigger batches run
+    #: under ``lax.map`` over batch chunks (the analogue of the
     #: reference's L2-resident chunking, committed_descriptor_impl.hpp:605).
+    #: The working set is estimated as 16 bytes of intermediates per
+    #: scalar of the widest plan level, so 2 GiB bounds a chunk's
+    #: temporaries to a few GiB on any card.  On an H100 the benchmark's
+    #: headline sizes ran 12-22 % faster unchunked (PERF.md); raising the
+    #: budget is a measured change of its own, with peak memory beside it.
     hbm_chunk_bytes: int = 2 << 30
 
-    @property
-    def vmem_budget(self) -> int:
-        return int(self.vmem_bytes * self.vmem_budget_fraction)
+
+def resolve_device_config(device=None) -> DeviceConfig:
+    """The planner knobs for ``device``: a :class:`DeviceConfig` passes
+    through unchanged; any device plans with the defaults."""
+    if isinstance(device, DeviceConfig):
+        return device
+    return DeviceConfig()
 
 
-_KNOWN = {
-    # device_kind substring -> (name, vmem_bytes, hbm GB/s)
-    "v5 lite": ("tpu_v5e", 16 * 2**20, 819.0),
-    "v5e": ("tpu_v5e", 16 * 2**20, 819.0),
-    "v5p": ("tpu_v5p", 16 * 2**20, 2765.0),
-    "v5": ("tpu_v5p", 16 * 2**20, 2765.0),
-    "v4": ("tpu_v4", 16 * 2**20, 1228.0),
-    "v6": ("tpu_v6e", 32 * 2**20, 1640.0),
-    "v3": ("tpu_v3", 16 * 2**20, 900.0),
+@dataclasses.dataclass(frozen=True)
+class DevicePeaks:
+    """Published peak rates of one device (dense, no sparsity)."""
+
+    #: Device memory bandwidth, GB/s.
+    hbm_gbps: float
+    #: Device memory, GB.
+    memory_gb: float
+    #: float32 outside the tensor cores, TFLOP/s.
+    fp32_tflops: float
+    #: TF32 on the tensor cores, TFLOP/s.
+    tf32_tflops: float
+    #: bf16 on the tensor cores, TFLOP/s.
+    bf16_tflops: float
+    #: float64 on the tensor cores, TFLOP/s.
+    fp64_tflops: float
+    #: Where the numbers come from.
+    source: str
+
+
+#: Keyed by the exact ``device_kind`` string JAX reports.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": DevicePeaks(
+        hbm_gbps=3350.0,
+        memory_gb=80.0,
+        fp32_tflops=67.0,
+        tf32_tflops=495.0,
+        bf16_tflops=989.0,
+        fp64_tflops=67.0,
+        source="NVIDIA H100 Tensor Core GPU data sheet, SXM5, 700 W",
+    ),
 }
 
 
-@functools.lru_cache(maxsize=8)
-def _config_for_kind(device_kind: str, platform: str) -> DeviceConfig:
-    kind = device_kind.lower()
-    if platform != "tpu":
-        # CPU / interpreter runs: same geometry so plans are identical to TPU,
-        # nominal bandwidth (roofline numbers are meaningless off-TPU).
-        return DeviceConfig(name=platform, hbm_gbps=100.0)
-    for key, (name, vmem, bw) in _KNOWN.items():
-        if key in kind:
-            return DeviceConfig(name=name, vmem_bytes=vmem, hbm_gbps=bw)
-    return DeviceConfig(name="tpu_unknown")
+def device_peaks(device=None) -> DevicePeaks:
+    """Published peaks of ``device`` (default: the first JAX device).
+
+    Raises LookupError for a device whose ``device_kind`` the table does
+    not hold, and for the CPU, which has no published peak: a rate is
+    never divided by an assumed one."""
+    if device is None:
+        import jax
+
+        device = jax.devices()[0]
+    if device.platform == "cpu":
+        raise LookupError("the CPU backend has no published peak")
+    try:
+        return PEAKS[device.device_kind]
+    except KeyError:
+        raise LookupError(
+            f"no published peaks for device_kind {device.device_kind!r}; "
+            "add them to portfft_tpu.config.PEAKS with their source"
+        ) from None
 
 
-def enable_persistent_cache(path: str = "~/.cache/portfft_tpu_xla") -> None:
+def card_description() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them
+    (``name, power.limit``), one line per card."""
+    try:
+        res = subprocess.run(
+            [
+                "nvidia-smi",
+                "--query-gpu=name,power.limit",
+                "--format=csv,noheader",
+            ],
+            capture_output=True,
+            text=True,
+            timeout=60,
+            check=True,
+        )
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"nvidia-smi unavailable: {exc}"
+    return res.stdout.strip()
+
+
+#: Compile-cache directory used when JAX_COMPILATION_CACHE_DIR is unset: a
+#: fixed path inside the checkout (listed in .gitignore), so a later
+#: process in the same checkout finds what an earlier one compiled.
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
+
+
+def compile_cache_dir() -> str:
+    """Where :func:`enable_persistent_cache` keeps compiled executables."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_CACHE_DIR
+
+
+def enable_persistent_cache() -> str:
     """Persist compiled executables across processes (the framework's
     plan-reuse story, replacing the reference's in-memory kernel-bundle
     sharing, committed_descriptor_impl.hpp:774-803: identical descriptors
     re-committed in a new process hit the XLA compilation cache instead of
-    recompiling)."""
-    import os
-
+    recompiling).  Honours JAX_COMPILATION_CACHE_DIR, which JAX reads
+    itself; otherwise sets :data:`DEFAULT_CACHE_DIR`.  Returns the
+    directory in use."""
     import jax
 
-    path = os.path.expanduser(path)
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    path = compile_cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
-
-def resolve_device_config(device=None) -> DeviceConfig:
-    """Introspect the target device (commit-time, like
-    committed_descriptor_impl.hpp:716-731)."""
-    import jax
-
-    if isinstance(device, DeviceConfig):
-        return device
-    if device is None:
-        device = jax.devices()[0]
-    return _config_for_kind(
-        getattr(device, "device_kind", "cpu"), getattr(device, "platform", "cpu")
-    )
+    return path

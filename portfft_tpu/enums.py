@@ -1,17 +1,16 @@
-"""Public enums of the TPU FFT framework.
+"""Public enums of the FFT framework.
 
 Semantics mirror the reference library's public enum surface
-(/root/reference/src/portfft/enums.hpp:26-86), re-expressed for a JAX/TPU
-runtime.  The four reference execution levels (WORKITEM / SUBGROUP /
-WORKGROUP / GLOBAL, enums.hpp:44) map onto the TPU compute hierarchy:
+(reference src/portfft/enums.hpp:26-86), re-expressed for a JAX runtime.
+The four reference execution levels (WORKITEM / SUBGROUP / WORKGROUP /
+GLOBAL, enums.hpp:44) map onto the planner's levels:
 
-* ``Level.DIRECT``  — one DFT-matrix matmul on the MXU; covers the sizes the
-  reference solves in work-item registers and most subgroup-level sizes.
-* ``Level.FUSED``   — a single Pallas kernel runs the whole multi-factor
-  Stockham plan inside VMEM (one HBM read + one HBM write per element);
+* ``Level.DIRECT``  — one DFT-matrix matmul; covers the sizes the reference
+  solves in work-item registers and most subgroup-level sizes.
+* ``Level.FUSED``   — one multi-factor Stockham chain of matmul stages;
   covers reference subgroup + workgroup territory.
-* ``Level.GLOBAL``  — multi-pass HBM pipeline with ping-pong scratch for
-  transforms too large for VMEM (reference GLOBAL).
+* ``Level.GLOBAL``  — four-step split into sub-plans with transposes
+  between the passes, for larger transforms (reference GLOBAL).
 * ``Level.BLUESTEIN`` — chirp-z fallback for large prime sizes (the reference
   throws for these; we support them).
 """
@@ -60,7 +59,7 @@ def inv(direction: Direction) -> Direction:
 
 
 class Level(enum.Enum):
-    """Planner-selected implementation level (TPU analogue of enums.hpp:44)."""
+    """Planner-selected implementation level (analogue of enums.hpp:44)."""
 
     DIRECT = "direct"
     FUSED = "fused"

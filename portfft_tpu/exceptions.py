@@ -17,8 +17,3 @@ class InvalidConfiguration(PortFFTError):
 class UnsupportedConfiguration(PortFFTError):
     """The descriptor is valid but not supported by this build
     (reference ``unsupported_configuration``)."""
-
-
-class OutOfVmemError(UnsupportedConfiguration):
-    """A kernel's VMEM working set does not fit on this device
-    (reference ``out_of_local_memory_error``)."""

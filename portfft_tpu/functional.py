@@ -2,8 +2,8 @@
 
 JAX users expect ``fft(x, axis=-1)``, not a plan-and-execute object model;
 these wrappers commit (and LRU-cache) the matching :class:`Descriptor` per
-(shape, dtype, norm) and dispatch through the library's optimized compute
-entry points — raw Pallas fast paths included.  A thin extension layer:
+(shape, dtype, norm) and dispatch through the library's compute entry
+points.  A thin extension layer:
 everything here is expressible with the core API (the reference exposes
 only the descriptor model, committed_descriptor.hpp:58-310).
 

@@ -1,8 +1,8 @@
 """Native (C++) planner core, bound via ctypes.
 
 The reference's planning/validation layer is native host code; this module
-provides the same for the TPU build: planner.cpp compiled on first use with
-the system toolchain into a shared library cached next to the source.  All
+provides the same here: planner.cpp compiled on first use with the system
+toolchain into a shared library cached next to the source.  All
 entry points have pure-Python fallbacks (planner.py / validation.py) — the
 framework works without a compiler, just plans marginally slower.
 """
@@ -61,12 +61,6 @@ def get_lib():
         lib.pf_largest_prime_factor.argtypes = [i64]
         lib.pf_factor_chain.restype = ctypes.c_int
         lib.pf_factor_chain.argtypes = [i64, ctypes.c_int, p64, ctypes.c_int]
-        lib.pf_fused_vmem_bytes.restype = i64
-        lib.pf_fused_vmem_bytes.argtypes = [i64, p64, ctypes.c_int, i64, i64]
-        lib.pf_fused_capable.restype = ctypes.c_int
-        lib.pf_fused_capable.argtypes = [i64, ctypes.c_int, i64, i64, i64]
-        lib.pf_pick_batch_tile.restype = i64
-        lib.pf_pick_batch_tile.argtypes = [i64, p64, ctypes.c_int, i64, i64, i64, i64]
         lib.pf_global_split.restype = ctypes.c_int
         lib.pf_global_split.argtypes = [
             i64, ctypes.c_int, i64, i64, i64, i64, i64, p64, p64
@@ -93,7 +87,7 @@ def factor_chain(n: int, max_factor: int):
 
 
 def global_split(
-    n, max_factor, direct_threshold, sublane, itemsize, vmem_budget,
+    n, max_factor, direct_threshold, fused_rows, itemsize, fused_budget,
     pass_budget,
 ):
     lib = get_lib()
@@ -102,7 +96,7 @@ def global_split(
     g1 = ctypes.c_int64()
     g2 = ctypes.c_int64()
     ok = lib.pf_global_split(
-        n, max_factor, direct_threshold, sublane, itemsize, vmem_budget,
+        n, max_factor, direct_threshold, fused_rows, itemsize, fused_budget,
         pass_budget, ctypes.byref(g1), ctypes.byref(g2),
     )
     if not ok:

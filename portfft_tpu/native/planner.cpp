@@ -47,7 +47,7 @@ int64_t pf_largest_prime_factor(int64_t n) {
 
 // ---------------------------------------------------------------------------
 // Factor chain: split n into factors <= max_factor, greedily largest-first
-// (fills the MXU contraction dim; fewest passes).  Returns count, 0 when a
+// (largest matmul stages; fewest passes).  Returns count, 0 when a
 // prime factor exceeds max_factor (Bluestein), -1 on capacity overflow.
 // ---------------------------------------------------------------------------
 int pf_factor_chain(int64_t n, int max_factor, int64_t* out, int cap) {
@@ -76,13 +76,13 @@ int pf_factor_chain(int64_t n, int max_factor, int64_t* out, int cap) {
 }
 
 // ---------------------------------------------------------------------------
-// Fused-kernel VMEM working-set estimate (mirrors planner.fused_vmem_bytes:
-// double-buffered in/out planes, ping-pong scratch, resident tables).
+// FUSED-chain working-set estimate (mirrors planner.fused_working_set_bytes:
+// double-buffered in/out planes, ping-pong scratch, tables once).
 // ---------------------------------------------------------------------------
-static int64_t fused_vmem_bytes_impl(int64_t n, const int64_t* factors,
-                                     int nfac, int64_t batch_tile,
-                                     int64_t itemsize) {
-  int64_t data = batch_tile * n * itemsize;
+static int64_t fused_working_set_bytes(int64_t n, const int64_t* factors,
+                                       int nfac, int64_t rows,
+                                       int64_t itemsize) {
+  int64_t data = rows * n * itemsize;
   int64_t in_out = 2 * (2 * data) * 2;
   int64_t scratch = 2 * (2 * data);
   // unique factor table bytes
@@ -106,31 +106,6 @@ static int64_t fused_vmem_bytes_impl(int64_t n, const int64_t* factors,
   return in_out + scratch + tables + tw;
 }
 
-int64_t pf_fused_vmem_bytes(int64_t n, const int64_t* factors, int nfac,
-                            int64_t batch_tile, int64_t itemsize) {
-  return fused_vmem_bytes_impl(n, factors, nfac, batch_tile, itemsize);
-}
-
-int pf_fused_capable(int64_t n, int max_factor, int64_t sublane,
-                     int64_t itemsize, int64_t vmem_budget) {
-  int64_t chain[64];
-  int cnt = pf_factor_chain(n, max_factor, chain, 64);
-  if (cnt <= 0) return 0;
-  return fused_vmem_bytes_impl(n, chain, cnt, sublane, itemsize) <=
-         vmem_budget;
-}
-
-// Largest power-of-two batch tile (>= sublane) within the VMEM budget.
-int64_t pf_pick_batch_tile(int64_t n, const int64_t* factors, int nfac,
-                           int64_t max_tile, int64_t sublane,
-                           int64_t itemsize, int64_t vmem_budget) {
-  for (int64_t bt = max_tile; bt > sublane; bt /= 2) {
-    if (fused_vmem_bytes_impl(n, factors, nfac, bt, itemsize) <= vmem_budget)
-      return bt;
-  }
-  return sublane;
-}
-
 // ---------------------------------------------------------------------------
 // Balanced four-step split n = g1*g2 with both halves plannable at DIRECT or
 // FUSED level (reference global factorization analogue,
@@ -138,23 +113,26 @@ int64_t pf_pick_batch_tile(int64_t n, const int64_t* factors, int nfac,
 // success, 0 when no split exists.
 // ---------------------------------------------------------------------------
 static int side_ok(int64_t v, int max_factor, int64_t direct_threshold,
-                   int64_t sublane, int64_t itemsize, int64_t vmem_budget) {
+                   int64_t fused_rows, int64_t itemsize,
+                   int64_t fused_budget) {
   int64_t chain[64];
   int cnt = pf_factor_chain(v, max_factor, chain, 64);
   if (cnt <= 0) return 0;
   if (v <= direct_threshold) return 1;
-  return fused_vmem_bytes_impl(v, chain, cnt, sublane, itemsize) <=
-         vmem_budget;
+  return fused_working_set_bytes(v, chain, cnt, fused_rows, itemsize) <=
+         fused_budget;
 }
 
 // Preference order (mirrors planner.py _global_split):
 //   1. both halves DIRECT (<= direct_threshold, 8-aligned), balanced;
-//   2. G1 = a*128 lane-fused (a | 128) with G2 DIRECT, minimizing the MXU
-//      work (a + 128 + G2), pass-1 working set bounded by pass_budget;
+//   2. G1 = a*128 two-stage FUSED (a | 128) with G2 DIRECT, minimizing the
+//      matmul work (a + 128 + G2), pass-1 working set bounded by
+//      pass_budget;
 //   3. legacy balanced search over anything plannable.
 int pf_global_split(int64_t n, int max_factor, int64_t direct_threshold,
-                    int64_t sublane, int64_t itemsize, int64_t vmem_budget,
-                    int64_t pass_budget, int64_t* g1_out, int64_t* g2_out) {
+                    int64_t fused_rows, int64_t itemsize,
+                    int64_t fused_budget, int64_t pass_budget,
+                    int64_t* g1_out, int64_t* g2_out) {
   int64_t root = 1;
   while ((root + 1) * (root + 1) <= n) ++root;
   // 1) both-direct balanced
@@ -168,7 +146,7 @@ int pf_global_split(int64_t n, int max_factor, int64_t direct_threshold,
       return 1;
     }
   }
-  // 2) one-fused: G1 = a*128, G2 direct, cheapest MXU work first
+  // 2) one-fused: G1 = a*128, G2 direct, cheapest matmul work first
   int64_t best_cost = -1, best_g1 = 0, best_g2 = 0;
   for (int64_t a = 8; a <= 128; a *= 2) {
     int64_t g1 = a * 128;
@@ -193,10 +171,10 @@ int pf_global_split(int64_t n, int max_factor, int64_t direct_threshold,
   for (int64_t g1 = root; g1 > 1; --g1) {
     if (n % g1) continue;
     int64_t g2 = n / g1;
-    if (side_ok(g2, max_factor, direct_threshold, sublane, itemsize,
-                vmem_budget) &&
-        side_ok(g1, max_factor, direct_threshold, sublane, itemsize,
-                vmem_budget)) {
+    if (side_ok(g2, max_factor, direct_threshold, fused_rows, itemsize,
+                fused_budget) &&
+        side_ok(g1, max_factor, direct_threshold, fused_rows, itemsize,
+                fused_budget)) {
       *g1_out = g2;
       *g2_out = g1;
       return 1;

@@ -1,20 +1,21 @@
-"""Double-double (df64) FFT executor: fp64 transforms on TPU.
+"""Double-double (df64) FFT executor: emulated fp64 from float32 math.
 
-TPUs have no native float64 (the reference gates fp64 on the device aspect
-and skips, fft_test_utils.hpp:441-448).  This module goes further: an
-opt-in emulated path representing every real as an unevaluated sum of two
-float32s (hi + lo), giving ~2^-48 effective precision — documented as
-extended precision, not IEEE binary64 (whose eps is 2^-52).
+For devices without native float64 (the reference gates fp64 on the device
+aspect and skips, fft_test_utils.hpp:441-448): an opt-in emulated path
+representing every real as an unevaluated sum of two float32s (hi + lo),
+giving ~2^-48 effective precision — documented as extended precision, not
+IEEE binary64 (whose eps is 2^-52).  A device with native fp64 runs
+``precision="float64"`` natively under ``jax_enable_x64`` instead.
 
-The MXU is useless here: a matmul accumulates in f32, so a long dot loses
+Matmuls are useless here: a matmul accumulates in f32, so a long dot loses
 ~2^-24·√N — the df64 executor instead runs the Cooley–Tukey chain with
-SMALL radices where every butterfly is elementwise VPU arithmetic built on
+SMALL radices where every butterfly is elementwise arithmetic built on
 error-free transformations (TwoSum / Dekker TwoProd).  Correctness-
-oriented: throughput is far below the f32 kernels and scales with the
-number of stages; the point is capability parity for fp64 users.
+oriented: throughput is far below the f32 path and scales with the number
+of stages.
 
 Enable with ``Descriptor(..., precision="float64")`` committed with
-``emulate_fp64=True`` (or env PORTFFT_EMULATE_FP64=1) on TPU.
+``emulate_fp64=True`` (or env PORTFFT_EMULATE_FP64=1).
 """
 
 from __future__ import annotations
@@ -185,14 +186,13 @@ def _dft_factor(x, f: int, bank, prefix: str):
     (..., f, m).  Vectorized over the output index k: one df64
     multiply-accumulate per input row j.
 
-    The j loop unrolls on TPU and for small radices everywhere (full
-    ~2^-48 df64 precision).  On CPU, naive-prime stages (13 < f ≤ 128)
-    run as ``fori_loop``: the unrolled f·60-op graph compiles
-    pathologically slowly there (minutes at f=31 under multi-device
-    configs), and XLA:CPU's while-loop codegen perturbs the error-free
-    transformations — measured ~2·10⁻⁸ relative instead of ~5·10⁻¹⁵
-    (still well beyond fp32, but short of full df64; the TPU path — the
-    one that matters — keeps full precision)."""
+    The j loop unrolls for small radices (full ~2^-48 df64 precision).
+    Naive-prime stages (13 < f ≤ 128) run as ``fori_loop``: the unrolled
+    f·60-op graph compiles pathologically slowly on XLA:CPU (minutes at
+    f=31 under multi-device configs), and its while-loop codegen perturbs
+    the error-free transformations — measured ~2·10⁻⁸ relative instead of
+    ~5·10⁻¹⁵ on the CPU (still well beyond fp32, but short of full
+    df64)."""
     import jax
 
     (rh, rl), (ih, il) = x
@@ -219,7 +219,7 @@ def _dft_factor(x, f: int, bank, prefix: str):
         acc_r, acc_i = acc
         return add(*acc_r, *pr), add(*acc_i, *pi)
 
-    if f <= 13 or jax.default_backend() == "tpu":
+    if f <= 13:
         acc = None
         for j in range(f):
             acc = step(j, acc)

@@ -1,16 +1,16 @@
-"""Plan executor: batched mixed-radix FFT as MXU contractions.
+"""Plan executor: batched mixed-radix FFT as matrix contractions.
 
-This is the compute core of the framework — the TPU-native replacement for
-the reference's four device-kernel families (wi_dft workitem.hpp:201, sg_dft
+This is the compute core of the framework — the replacement for the
+reference's four device-kernel families (wi_dft workitem.hpp:201, sg_dft
 subgroup.hpp:272, wg_dft workgroup.hpp:320, and the global engine
 common/global.hpp).  The load-bearing translation: a radix-f butterfly pass
 over a batch of sub-transforms is a (rows, f) × (f, f) complex matmul against
-the factor's DFT matrix, executed on the MXU as four real matmuls; the
-cross-lane shuffles of the reference become XLA transposes that stay in
-registers/VMEM for small sizes.
+the factor's DFT matrix, executed as four real matmuls; the cross-lane
+shuffles of the reference become transposes that XLA schedules between the
+matmuls.
 
-Complex data is carried as separate (re, im) float planes throughout (MXU has
-no complex type).  Every function here is shape-static and jit-traceable.
+Complex data is carried as separate (re, im) float planes throughout.  Every
+function here is shape-static and jit-traceable.
 
 The Cooley–Tukey split used at every level, for n = f·m, with x viewed as
 x[n1, n2] (n = n1·m + n2):
@@ -22,14 +22,13 @@ x[n1, n2] (n = n1·m + n2):
 
 DIRECT/FUSED leaves run the chain with single-matmul stages; GLOBAL nodes run
 the same split with recursive sub-plans (reference global_dispatcher.hpp);
-BLUESTEIN converts a large-prime size into a padded power-of-two convolution.
+BLUESTEIN converts a large-prime size into a padded convolution.
 """
 
 from __future__ import annotations
 
-import functools
 import math
-from typing import Callable, Optional
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -39,29 +38,17 @@ from .. import twiddle as tw
 from ..enums import Level
 from ..planner import Plan1D
 
-#: lane-tile candidates for which the factored-resident pass-1 twiddle
-#: table sets ('Q'/'ZQ') are banked at commit; the autotuner must only
-#: emit {"ftw": 1} variants at these t1 values (a miss would silently
-#: measure the dense path under the ftw label).
-FTW_T1_CANDIDATES = (64, 128, 256)
-# Lane-tile candidates for the bf2 engine's factored GB tables
-# (ops/pallas_global_bf.py global_bf2_raw_call).
-BF2_T1_CANDIDATES = (128, 256, 512)
-
 Array = jax.Array
 
-#: MXU precision for the factor matmuls.  HIGHEST (6-pass bf16 emulation)
-#: gives full fp32 accuracy; HIGH (3-pass) roughly halves MXU time and still
-#: clears the test tolerance 2·eps·N·log2N at all supported sizes.  Settable
-#: per commit (CommittedDescriptor(..., matmul_precision=...)).
+#: Precision of the factor matmuls.  HIGHEST (the default) keeps full
+#: float32 accuracy; on an H100, "default" and "high" run float32 matmuls
+#: in TF32, which fails the oracle's tolerance (chip_smoke.py's precision
+#: phase measures this).  Settable per commit
+#: (CommittedDescriptor(..., matmul_precision=...)).
 _PRECISIONS = {
     "default": jax.lax.Precision.DEFAULT,
     "high": jax.lax.Precision.HIGH,
     "highest": jax.lax.Precision.HIGHEST,
-    # manual 3-/4-pass bf16 emulation (see matmul_x3/x4) — Mosaic cannot
-    # lower Precision.HIGH inside kernels, so the split is done by hand.
-    "x3": "x3",
-    "x4": "x4",
 }
 _PRECISION = jax.lax.Precision.HIGHEST
 
@@ -72,58 +59,6 @@ def resolve_precision(p):
     if isinstance(p, str):
         return _PRECISIONS[p.lower()]
     return p
-
-
-def _presplit_hl(m: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Host-side two-term bf16 split of a table (hi = bf16(m),
-    lo = bf16(m - hi)) — the constant half of the x3 scheme, precomputed
-    so kernels skip the table splits at run time."""
-    import ml_dtypes
-
-    m = np.asarray(m, np.float32)
-    h = m.astype(ml_dtypes.bfloat16)
-    l = (m - h.astype(np.float32)).astype(ml_dtypes.bfloat16)
-    return h, l
-
-
-def matmul_x3(a: Array, b: Array) -> Array:
-    """fp32 matmul as three bf16 MXU passes (the bf16x3 scheme).
-
-    f32's 24-bit mantissa splits exactly into three bf16 parts; keeping the
-    three largest cross terms gives ~2^-22 relative error at ~2× the speed
-    of Precision.HIGHEST (six passes).  Used inside Pallas kernels where
-    XLA's own HIGH lowering is unavailable."""
-    f32 = jnp.float32
-    bf = jnp.bfloat16
-    a1 = a.astype(bf)
-    a2 = (a - a1.astype(f32)).astype(bf)
-    b1 = b.astype(bf)
-    b2 = (b - b1.astype(f32)).astype(bf)
-    out = jnp.matmul(a1, b1, preferred_element_type=f32)
-    out = out + jnp.matmul(a1, b2, preferred_element_type=f32)
-    out = out + jnp.matmul(a2, b1, preferred_element_type=f32)
-    return out
-
-
-def matmul_x4(a: Array, b: Array) -> Array:
-    """fp32 matmul as four bf16 MXU passes (x3 + the a2·b2 cross term).
-
-    NOTE: this does NOT reach full fp32 — the two-term bf16 operand split
-    itself carries only ~16-17 mantissa bits, so x4's floor equals x3's
-    (~1e-5 relative).  Kept for callers that want the cross term's modest
-    constant-factor improvement; sizes whose tolerance budget is below the
-    two-term floor must use Precision.HIGHEST (three-term split)."""
-    f32 = jnp.float32
-    bf = jnp.bfloat16
-    a1 = a.astype(bf)
-    a2 = (a - a1.astype(f32)).astype(bf)
-    b1 = b.astype(bf)
-    b2 = (b - b1.astype(f32)).astype(bf)
-    out = jnp.matmul(a2, b2, preferred_element_type=f32)
-    out = out + jnp.matmul(a1, b2, preferred_element_type=f32)
-    out = out + jnp.matmul(a2, b1, preferred_element_type=f32)
-    out = out + jnp.matmul(a1, b1, preferred_element_type=f32)
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -163,259 +98,23 @@ class TwiddleBank:
             self.host[key] = None
         return key
 
-    @staticmethod
-    def _bluestein_bhat(n: int, conv_n: int, sign: int):
-        """Chirp c (complex128, length n) and b̂ = DFT of the zero-padded
-        mirrored conjugate chirp with the backward convolution's 1/conv_n
-        normalization folded in.  The single source of the normalization-
-        critical construction shared by chirp() and bluestein_post()."""
-        cr, ci = tw.bluestein_chirp(n, sign, np.float64)
-        c = cr + 1j * ci
-        b = np.zeros(conv_n, dtype=np.complex128)
-        b[:n] = np.conj(c)
-        b[conv_n - n + 1 :] = np.conj(c)[1:][::-1]
-        return c, np.fft.fft(b) * (1.0 / conv_n)
-
     def chirp(self, n: int, conv_n: int, sign: int) -> str:
-        """Bluestein chirp c and the DFT of the padded mirrored chirp b.
-        The backward convolution's 1/conv_n normalization is folded into
-        the b table (one fewer elementwise pass at execute time)."""
+        """Bluestein chirp c and b̂ = DFT of the zero-padded mirrored
+        conjugate chirp.  The backward convolution's 1/conv_n normalization
+        is folded into the b̂ table (one fewer elementwise pass at execute
+        time)."""
         key = f"B{'f' if sign < 0 else 'b'}{n}_{conv_n}"
         if key not in self.host:
-            c, bf = self._bluestein_bhat(n, conv_n, sign)
+            cr, ci = tw.bluestein_chirp(n, sign, np.float64)
+            c = cr + 1j * ci
+            b = np.zeros(conv_n, dtype=np.complex128)
+            b[:n] = np.conj(c)
+            b[conv_n - n + 1 :] = np.conj(c)[1:][::-1]
+            bf = np.fft.fft(b) * (1.0 / conv_n)
             self.host[key + "cr"] = c.real.astype(self.dtype)
             self.host[key + "ci"] = c.imag.astype(self.dtype)
             self.host[key + "br"] = bf.real.astype(self.dtype)
             self.host[key + "bi"] = bf.imag.astype(self.dtype)
-            self.host[key] = None
-        return key
-
-    def bluestein_post(
-        self, n: int, conv_n: int, g1: int, g2: int, sign: int
-    ) -> str:
-        """Pass-2 post-multiply tables for a GLOBAL Bluestein convolution:
-        ``f`` = b̂ (the chirp spectrum, 1/conv_n folded) and ``g`` = the
-        final chirp zero-extended past n, both arranged [k1, k2] (g1, g2)
-        to match the engine's pass-2 block orientation.  Folding these
-        into the convolution passes deletes two full read+write sweeps of
-        the conv-sized data per transform."""
-        key = f"O{'f' if sign < 0 else 'b'}{n}_{g1}x{g2}"
-        if key not in self.host:
-            c, bf = self._bluestein_bhat(n, conv_n, sign)
-            cz = np.zeros(conv_n, dtype=np.complex128)
-            cz[:n] = c
-            for suf, arr in (("f", bf), ("g", cz)):
-                m = arr.reshape(g2, g1).T  # [k1, k2]
-                self.host[key + suf + "r"] = np.ascontiguousarray(
-                    m.real
-                ).astype(self.dtype)
-                self.host[key + suf + "i"] = np.ascontiguousarray(
-                    m.imag
-                ).astype(self.dtype)
-            self.host[key] = None
-        return key
-
-    def blane_permuted(
-        self, base_key: str, row_f, col_f, suffixes=("r", "i")
-    ) -> str:
-        """Copy of a banked table with rows/cols reordered to the
-        butterfly lane-DFT's slab-digit-major order (pallas_bluestein.
-        lane_perm): position p holds frequency (p//128) + A·(p%128).
-        Used by the Bluestein bf mode, where the fwd stages' output
-        permutation is cancelled by the paired bwd stages and only the
-        in-between pointwise tables need re-layout."""
-        key = base_key + f"_bl{row_f or 0}x{col_f or 0}"
-        if key not in self.host:
-
-            def inv(f):
-                a = f // 128
-                return [(p // 128) + a * (p % 128) for p in range(f)]
-
-            for suf in suffixes:
-                m = np.asarray(self.host[base_key + suf])
-                if row_f:
-                    m = m[inv(row_f), :]
-                if col_f:
-                    m = m[:, inv(col_f)]
-                self.host[key + suf] = np.ascontiguousarray(m)
-            self.host[key] = None
-        return key
-
-    def bluestein_pre(self, n: int, g2: int, nv: int, sign: int) -> str:
-        """Pass-1 chirp table for the fused three-pass Bluestein engine
-        (ops/pallas_bluestein): (nv, g2) [j1, j2] = c[j1·g2 + j2], zero past
-        n — multiplied onto the valid input rows inside conv-forward pass 1
-        so the chirp/zero-pad prologue sweep disappears."""
-        key = f"C{'f' if sign < 0 else 'b'}{n}_{g2}x{nv}"
-        if key not in self.host:
-            cr, ci = tw.bluestein_chirp(n, sign, np.float64)
-            cz = np.zeros(nv * g2, dtype=np.complex128)
-            cz[:n] = cr + 1j * ci
-            m = cz.reshape(nv, g2)
-            self.host[key + "r"] = m.real.astype(self.dtype)
-            self.host[key + "i"] = m.imag.astype(self.dtype)
-            self.host[key] = None
-        return key
-
-    def bluestein_final(self, n: int, g1b: int, g2b: int, sign: int) -> str:
-        """Pass-3 post table for the fused Bluestein engine: the final chirp
-        on the swapped backward factorization (G1', G2') = (g1b, g2b),
-        arranged [k1', k2'] (g1b, g2b) with value c[k1' + g1b·k2'], zero
-        past n — folds the final chirp multiply AND the slice back to n
-        into backward pass 2."""
-        key = f"D{'f' if sign < 0 else 'b'}{n}_{g1b}x{g2b}"
-        if key not in self.host:
-            cr, ci = tw.bluestein_chirp(n, sign, np.float64)
-            cz = np.zeros(g1b * g2b, dtype=np.complex128)
-            cz[:n] = cr + 1j * ci
-            m = cz.reshape(g2b, g1b).T  # [k1', k2']
-            self.host[key + "r"] = np.ascontiguousarray(m.real).astype(
-                self.dtype
-            )
-            self.host[key + "i"] = np.ascontiguousarray(m.imag).astype(
-                self.dtype
-            )
-            self.host[key] = None
-        return key
-
-    def twiddle_fm(self, f: int, m: int, sign: int) -> str:
-        """Inter-factor twiddles in natural (f, m) orientation (used by the
-        layout-L raw kernel, where k1 is the sublane dimension)."""
-        key = f"U{'f' if sign < 0 else 'b'}{f}x{m}"
-        if key not in self.host:
-            re, im = tw.twiddles(f, m, sign, self.dtype)
-            self.host[key + "r"] = re
-            self.host[key + "i"] = im
-            self.host[key] = None
-        return key
-
-    def dft_permuted(self, f: int, sign: int, g: int) -> str:
-        """DFT matrix with columns permuted for the k2-fold output layout:
-        storage column j·(f/g) + k2h holds frequency k2h·g + j, so folding g
-        output rows into one dense ≥128-lane row lands in natural order."""
-        key = f"P{'f' if sign < 0 else 'b'}{f}_g{g}"
-        if key not in self.host:
-            re, im = tw.dft_matrix(f, sign, self.dtype)
-            L = f // g
-            sigma = np.empty(f, np.int64)
-            for j in range(g):
-                for k2h in range(L):
-                    sigma[j * L + k2h] = k2h * g + j
-            self.host[key + "r"] = np.ascontiguousarray(re[:, sigma])
-            self.host[key + "i"] = np.ascontiguousarray(im[:, sigma])
-            self.host[key] = None
-        return key
-
-    def global_fused_twiddles(self, a: int, g2: int, n: int, sign: int) -> str:
-        """Factored global twiddle for a fused-[a,128] G1 in the two-pass
-        engine: W_n^{k1·n2} with k1 = k1a + a·k2a splits into
-        T1[k1a, n2]·T2[k2a, n2].  Stored in the orientations the kernel
-        broadcasts: ``1`` = T1 row-expanded to the fold order
-        (128, g2)[q, n2] = W_n^{(q mod a)·n2}, applied on the restack scratch
-        (128, a, t) as (128, 1, t); ``2`` = T2 transposed and column-permuted
-        to the pre-fold order (g2, 128)[n2, c] = W_{n/a}^{σ(c)·n2} with
-        σ(c) = (c mod a)·g + (c div a), applied on (a, t, 128) as
-        (1, t, 128)."""
-        key = f"Z{'f' if sign < 0 else 'b'}{a}x{g2}N{n}"
-        if key not in self.host:
-            g = 128 // a
-            t1r, t1i = tw.twiddles_n(a, g2, n, sign, np.float64)
-            # stored (g2, 128) like T2 so the per-block slice (t, 128) is a
-            # legal Pallas block at any t (the kernel transposes in VMEM)
-            self.host[key + "1r"] = np.ascontiguousarray(
-                np.tile(t1r, (g, 1)).T
-            ).astype(self.dtype)
-            self.host[key + "1i"] = np.ascontiguousarray(
-                np.tile(t1i, (g, 1)).T
-            ).astype(self.dtype)
-            t2r, t2i = tw.twiddles_n(128, g2, n // a, sign, np.float64)
-            c = np.arange(128)
-            sigma = (c % a) * g + (c // a)
-            self.host[key + "2r"] = np.ascontiguousarray(
-                t2r.T[:, sigma]
-            ).astype(self.dtype)
-            self.host[key + "2i"] = np.ascontiguousarray(
-                t2i.T[:, sigma]
-            ).astype(self.dtype)
-            self.host[key] = None
-        return key
-
-    def twiddle_expanded(self, f: int, m: int, sign: int) -> str:
-        """Inter-factor twiddles in (f, 2m) lane-pair-expanded orientation:
-        column 2t and 2t+1 both hold T[j, t].  Broadcast tables for the
-        roll-based interleaved complex multiply (_ctw_raw) in the v3
-        interleaved-stage kernels."""
-        key = f"E{'f' if sign < 0 else 'b'}{f}x{m}"
-        if key not in self.host:
-            re, im = tw.twiddles(f, m, sign, self.dtype)
-            self.host[key + "r"] = np.ascontiguousarray(np.repeat(re, 2, 1))
-            self.host[key + "i"] = np.ascontiguousarray(np.repeat(im, 2, 1))
-            self.host[key] = None
-        return key
-
-    def vmat_split(self, m: int, sign: int, g: int, scale: float) -> str:
-        """Split-output interleaved DFT tables (2m, m): right-multiplying a
-        lane-interleaved block (rows of 2m scalars) by Vr / Vi yields the
-        separate re / im planes of the m-point DFT in one real matmul each
-        (same flop count as the four-plane-matmul form, none of the
-        deinterleave transposes).  ``g`` > 1 applies the k2-fold column
-        permutation sigma (see dft_permuted); ``scale`` is folded in free."""
-        key = f"S{'f' if sign < 0 else 'b'}{m}_g{g}_{scale!r}"
-        if key not in self.host:
-            wr, wi = tw._dft_matrix_f64(m, sign)
-            if g > 1:
-                L = m // g
-                c = np.arange(m)
-                sigma = (c // L) + (c % L) * g
-                wr = wr[:, sigma]
-                wi = wi[:, sigma]
-            vr = np.empty((2 * m, m), np.float64)
-            vi = np.empty((2 * m, m), np.float64)
-            vr[0::2] = wr
-            vr[1::2] = -wi
-            vi[0::2] = wi
-            vi[1::2] = wr
-            if scale != 1.0:
-                vr *= scale
-                vi *= scale
-            self.host[key + "r"] = vr.astype(self.dtype)
-            self.host[key + "i"] = vi.astype(self.dtype)
-            self.host[key] = None
-        return key
-
-    def btw_planes(self, g1: int, g2: int, n: int, t1: int, sign: int) -> str:
-        """Resident factored pass-1 twiddle for the raw two-pass engine
-        (direct G1, 128 | G1): W_n^{k1·n2} with k1 = k1_lo + 128·k1_hi and
-        n2 = m2 + n2b (m2 = block offset ti·t1) splits into four small
-        tables — the block-independent ``B`` pair and the per-block ``A``
-        pair indexed by ti:
-
-          B1[n2b, k1_lo] = W_n^{n2b·k1_lo}            (t1, 128)
-          B2[n2b, k1_hi] = W_{n/128}^{n2b·k1_hi}      (t1, gb)
-          A1[ti, k1_lo]  = W_n^{ti·t1·k1_lo}          (g2/t1, 128)
-          A2[ti, k1_hi]  = W_{n/128}^{ti·t1·k1_hi}    (g2/t1, gb)
-
-        This replaces the dense streamed (t1, g1) twiddle blocks — one
-        third of pass-1 traffic — with ~100 KB of resident tables."""
-        gb = g1 // 128
-        key = f"Q{'f' if sign < 0 else 'b'}{g1}N{n}t{t1}"
-        if key not in self.host:
-            nt = g2 // t1
-            for suf, (f, m, root) in (
-                ("1", (t1, 128, n)),
-                ("2", (t1, gb, n // 128)),
-            ):
-                re, im = tw.twiddles_n(f, m, root, sign, np.float64)
-                self.host[key + suf + "r"] = re.astype(self.dtype)
-                self.host[key + suf + "i"] = im.astype(self.dtype)
-            j = (np.arange(nt, dtype=np.float64) * t1)[:, None]
-            for suf, (m, root) in (("3", (128, n)), ("4", (gb, n // 128))):
-                k = np.arange(m, dtype=np.float64)[None, :]
-                theta = (2.0 * np.pi / root) * np.mod(j * k, root)
-                self.host[key + suf + "r"] = np.cos(theta).astype(self.dtype)
-                self.host[key + suf + "i"] = (
-                    np.float64(sign) * np.sin(theta)
-                ).astype(self.dtype)
             self.host[key] = None
         return key
 
@@ -434,320 +133,20 @@ class TwiddleBank:
             self.host[key] = None
         return key
 
-    def global3_btw(
-        self, ga: int, gb: int, n: int, t1: int, sign: int
-    ) -> str:
-        """Resident block-independent factors of the v3 engine's pass-1
-        global twiddle W_n^{k1·n2b} with k1 = k1_lo + ga·k1_hi:
-        ``1`` = B1[k1_lo, 2n2b+q] = W_n^{k1_lo·n2b} (ga, 2t1) pair-expanded,
-        ``2`` = B2[k1_hi, 2n2b+q] = W_{n/ga}^{k1_hi·n2b} (gb, 2t1).  The
-        per-block A factors (functions of the grid index) are computed
-        in-kernel (ops/pallas_global3._apply_global_twiddle)."""
-        key = f"G{'f' if sign < 0 else 'b'}{ga}x{gb}N{n}t{t1}"
-        if key not in self.host:
-            b1r, b1i = tw.twiddles_n(ga, t1, n, sign, np.float64)
-            b2r, b2i = tw.twiddles_n(gb, t1, n // ga, sign, np.float64)
-            for suf, arr in (
-                ("1r", b1r), ("1i", b1i), ("2r", b2r), ("2i", b2i)
-            ):
-                self.host[key + suf] = np.ascontiguousarray(
-                    np.repeat(arr, 2, 1)
-                ).astype(self.dtype)
-            self.host[key] = None
-        return key
-
-    def global_fused_twiddles_factored(
-        self, a: int, g2: int, n: int, t1: int, sign: int
-    ) -> str:
-        """Resident factorization of the fused-G1 Z tables over
-        n2 = m2 + n2b: ``1``/``2`` = the block-independent n2b parts of
-        z1/z2 (t1, 128), ``3``/``4`` = the per-block m2 parts indexed by
-        ti (g2/t1, 128).  Replaces the four streamed (t1, 128) Z slices
-        (~25% of pass-1 input traffic at G1=1024) with ~200 KB resident."""
-        g = 128 // a
-        key = f"Y{'f' if sign < 0 else 'b'}{a}x{g2}N{n}t{t1}"
-        if key not in self.host:
-            q = np.arange(128, dtype=np.float64)
-            e1 = np.mod(q, a)  # z1 column exponent: (q mod a)
-            c = np.arange(128)
-            sigma = ((c % a) * g + (c // a)).astype(np.float64)
-            nt = g2 // t1
-            for suf, (rows, cols, root) in (
-                ("1", (np.arange(t1, dtype=np.float64), e1, n)),
-                ("2", (np.arange(t1, dtype=np.float64), sigma, n // a)),
-                ("3", (np.arange(nt, dtype=np.float64) * t1, e1, n)),
-                ("4", (np.arange(nt, dtype=np.float64) * t1, sigma, n // a)),
-            ):
-                theta = (2.0 * np.pi / root) * np.mod(
-                    rows[:, None] * cols[None, :], root
-                )
-                self.host[key + suf + "r"] = np.cos(theta).astype(self.dtype)
-                self.host[key + suf + "i"] = (
-                    np.float64(sign) * np.sin(theta)
-                ).astype(self.dtype)
-            self.host[key] = None
-        return key
-
-    def dft_kstack(self, f: int, sign: int) -> str:
-        """(2f, 6f) bf16 stage-A table for the one-matmul complex DFT.
-
-        The x3 precision terms (hi/lo bf16 operand splits), the four
-        complex products and both outputs stack along the contraction /
-        output axes, so stage A runs as ONE (2f, 6f) @ (6f, L) MXU matmul
-        against the runtime data stack [xrh; xrl; xrh; xih; xil; xih]
-        instead of twelve (f, f) @ (f, L) matmuls whose K = M = f waste
-        the 128-wide systolic array (measured 179 → 197 GB/s at N=4096).
-        Output rows [0, f) = re, [f, 2f) = im."""
-        key = f"K{'f' if sign < 0 else 'b'}{f}"
-        if key not in self.host:
-            wr, wi = tw._dft_matrix_f64(f, sign)
-            wrh, wrl = _presplit_hl(wr)
-            wih, wil = _presplit_hl(wi)
-            nrh, nrl = _presplit_hl(-wi)
-            sr = np.concatenate([wrh, wrh, wrl, nrh, nrh, nrl], axis=1)
-            si = np.concatenate([wih, wih, wil, wrh, wrh, wrl], axis=1)
-            self.host[key + "k"] = np.concatenate([sr, si], axis=0)
-            self.host[key] = None
-        return key
-
-    def bf_twiddle_hi(self, a: int, g2: int, n: int, sign: int) -> str:
-        """Resident high-digit factor of the bf engine's inter-factor
-        twiddle: (A1, g2)[kA1, n2] = W_n^{kA1·n2}
-        (ops/pallas_global_bf.py — applied per output slab as a (1, t1)
-        row broadcast)."""
-        key = f"GA{'f' if sign < 0 else 'b'}{a}x{g2}N{n}"
-        if key not in self.host:
-            re, im = tw.twiddles_n(a, g2, n, sign, self.dtype)
-            self.host[key + "r"] = re
-            self.host[key + "i"] = im
-            self.host[key] = None
-        return key
-
-    def bf_twiddle_lo(self, g2: int, n_lo: int, sign: int) -> str:
-        """Streamed low-digit factor of the bf engine's inter-factor
-        twiddle: (128, g2)[kB1, n2] = W_{n/A1}^{kB1·n2} — A1× less HBM
-        stream than the dense (g2, g1) table."""
-        key = f"GB{'f' if sign < 0 else 'b'}128x{g2}N{n_lo}"
-        if key not in self.host:
-            re, im = tw.twiddles_n(128, g2, n_lo, sign, self.dtype)
-            self.host[key + "r"] = re
-            self.host[key + "i"] = im
-            self.host[key] = None
-        return key
-
-    def real_small(self, n: int, g: int, sign: int, scale: float) -> str:
-        """Stacked bf16 table for the small-n REAL path: the ENTIRE R2C
-        (sign<0) or C2R (sign>0) transform of one row is a constant REAL
-        matrix over the row's raw floats (conjugation is real-linear), so
-        ``g`` transforms pack block-diagonally into one MXU matmul
-        (ops/pallas_real.small_real_raw_call — round-5 VERDICT weak #2:
-        N=32 ran the plane path at ~5% of ceiling).
-
-        forward: (3·g·n, g·(n+2)), column j of a block = float view of
-        np.fft.rfft(e_j)·scale.  backward: (3·g·(n+2), g·n), column j =
-        np.fft.irfft(float-basis_j)·n·scale (unnormalized inverse).
-        Rows stacked [Bh; Bh; Bl] for the runtime lane stack
-        [xh, xl, xh] (x3 precision)."""
-        key = f"RS{'f' if sign < 0 else 'b'}{n}g{g}_{scale!r}"
-        if key not in self.host:
-            if sign < 0:
-                b = np.zeros((n, n + 2), np.float64)
-                for j in range(n):
-                    e = np.zeros(n, np.float64)
-                    e[j] = 1.0
-                    spec = np.fft.rfft(e) * scale
-                    b[j] = spec.view(np.float64)
-            else:
-                b = np.zeros((n + 2, n), np.float64)
-                for j in range(n + 2):
-                    ef = np.zeros(n + 2, np.float64)
-                    ef[j] = 1.0
-                    c = ef.view(np.complex128)
-                    b[j] = np.fft.irfft(c, n) * n * scale
-            kk, nn = b.shape
-            bd = np.zeros((g * kk, g * nn), np.float64)
-            for q in range(g):
-                bd[q * kk : (q + 1) * kk, q * nn : (q + 1) * nn] = b
-            h, l = _presplit_hl(bd)
-            self.host[key + "k"] = np.concatenate([h, h, l], axis=0)
-            self.host[key] = None
-        return key
-
-    def ilv_dup_cross(self, base_key: str) -> str:
-        """Pair-trick tables for elementwise complex multiply on an
-        INTERLEAVED lane axis (the eng-8 interleaved-native engine,
-        ops/pallas_global_ilv.py): for y = t·x with x lanes (re, im)
-        pairs,  y = D⊙x + C⊙sps(x)  where sps is multiply-by-i (lane
-        pair-swap with the even-lane negation, pallas_global_ilv._sps)
-        and D / C are the pair-duplicated re / im of t.  Built from the
-        existing host pair ``base_key``(r/i); suffixes d/c."""
-        key = base_key + "_ilv"
-        if key not in self.host:
-            r = np.asarray(self.host[base_key + "r"], np.float64)
-            i = np.asarray(self.host[base_key + "i"], np.float64)
-            self.host[key + "d"] = np.repeat(r, 2, axis=-1).astype(self.dtype)
-            self.host[key + "c"] = np.repeat(i, 2, axis=-1).astype(self.dtype)
-            self.host[key] = None
-        return key
-
-    def twiddle_fm_t(self, f: int, m: int, sign: int) -> str:
-        """Transposed inter-factor twiddles (m, f) = [iB, kA] — the eng-8
-        phase-A digit twiddle applied as per-slab COLUMN broadcasts (iB is
-        the sublane axis there, no interleaving involved)."""
-        key = f"UT{'f' if sign < 0 else 'b'}{f}x{m}"
-        if key not in self.host:
-            re, im = tw.twiddles(f, m, sign, self.dtype)
-            self.host[key + "r"] = np.ascontiguousarray(re.T)
-            self.host[key + "i"] = np.ascontiguousarray(im.T)
-            self.host[key] = None
-        return key
-
-    def mat_il_left(self, sign: int) -> str:
-        """(256, 384) bf16 stacked table for the eng-8 phase-A slab DFT as
-        ONE left matmul on interleaved-column data: rows [Wr128; Wi128],
-        column blocks [hi, hi, lo] matching the runtime row stack
-        [zh; zl; zh] (x3 precision).  Output rows [A; B] recombine as
-        z = A + σ⊙ps(B)."""
-        key = f"ILL{'f' if sign < 0 else 'b'}"
-        if key not in self.host:
-            wr, wi = tw.dft_matrix(128, sign, np.float64)
-            wrh, wrl = _presplit_hl(wr)
-            wih, wil = _presplit_hl(wi)
-            top = np.concatenate([wrh, wrh, wrl], axis=1)
-            bot = np.concatenate([wih, wih, wil], axis=1)
-            self.host[key + "k"] = np.concatenate([top, bot], axis=0)
-            self.host[key] = None
-        return key
-
-    def mat_il_right(self, sign: int, scale: float = 1.0) -> str:
-        """(768, 256) bf16 stacked table for the eng-8 phase-B slab DFT as
-        ONE right matmul on interleaved-lane data: lane stack
-        [xh, xl, xh] (x3), rows interleaved (2m: xr_m, 2m+1: xi_m),
-        output columns [yr(128) | yi(128)] SEPARATED (so the store
-        epilogue interleaves with contiguous slices).  ``scale`` folds
-        into the table (it is the chain's last matmul)."""
-        key = f"ILR{'f' if sign < 0 else 'b'}_{scale!r}"
-        if key not in self.host:
-            wr, wi = tw.dft_matrix(128, sign, np.float64)
-            wr = wr * scale
-            wi = wi * scale
-            w2 = np.zeros((256, 256), np.float64)
-            w2[0::2, :128] = wr
-            w2[1::2, :128] = -wi
-            w2[0::2, 128:] = wi
-            w2[1::2, 128:] = wr
-            h, l = _presplit_hl(w2)
-            self.host[key + "k"] = np.concatenate([h, h, l], axis=0)
-            self.host[key] = None
-        return key
-
-    def bf_lo_factored(self, n_lo: int, t1: int, n_tiles: int, sign: int) -> str:
-        """Resident factored replacement for the bf engine's streamed GB
-        table (the bf2 path, ops/pallas_global_bf.py): with n2 = c + t1·s
-        the low-digit twiddle W_{n/A1}^{kB1·n2} splits into
-
-          B1[c, kB1] = W_{n_lo}^{c·kB1}        (t1, 128)   resident
-          B2[s, kB1] = W_{n_lo}^{s·t1·kB1}     (n_tiles, 128)  per-tile row
-
-        killing the 8n/A1 HBM bytes per batch row the streamed table cost.
-        Both orientations are stored (suffixes 1r/1i/2r/2i and the
-        transposed 1tr/1ti/2tr/2ti) so either store path can broadcast
-        without an in-kernel transpose."""
-        key = f"G2{'f' if sign < 0 else 'b'}L{n_lo}t{t1}"
-        if key not in self.host:
-            b1r, b1i = tw.twiddles_n(t1, 128, n_lo, sign, np.float64)
-            j = (np.arange(n_tiles, dtype=np.float64) * t1)[:, None]
-            k = np.arange(128, dtype=np.float64)[None, :]
-            theta = (2.0 * np.pi / n_lo) * np.mod(j * k, n_lo)
-            b2r = np.cos(theta)
-            b2i = float(sign) * np.sin(theta)
-            for suf, arr in (
-                ("1r", b1r), ("1i", b1i), ("2r", b2r), ("2i", b2i),
-                ("1tr", b1r.T), ("1ti", b1i.T),
-                ("2tr", b2r.T), ("2ti", b2i.T),
-            ):
-                self.host[key + suf] = np.ascontiguousarray(
-                    arr.astype(self.dtype)
-                )
-            self.host[key] = None
-        return key
-
-    def mat_kara(self, base_key: str, scale: float = 1.0) -> str:
-        """Presplit bf16 tables for the Karatsuba complex right-matmul
-        against the bank pair ``base_key``(r/i): hi/lo of Wr, Wi and
-        Wr+Wi (suffixes 1..6) — nine bf16 matmuls instead of the x3
-        scheme's twelve, at the same ~1e-5 error floor.  ``scale`` is
-        folded into the tables (Karatsuba recombination is linear)."""
-        key = base_key + f"_kara_{scale!r}"
-        if key not in self.host:
-            wr = self.host[base_key + "r"].astype(np.float64) * scale
-            wi = self.host[base_key + "i"].astype(np.float64) * scale
-            for suf, (h, l) in (
-                ("1", _presplit_hl(wr)),
-                ("3", _presplit_hl(wi)),
-                ("5", _presplit_hl(wr + wi)),
-            ):
-                self.host[key + suf] = h
-                self.host[key + str(int(suf) + 1)] = l
-            self.host[key] = None
-        return key
-
-    def mat_kstack_r(self, base_key: str, scale: float = 1.0) -> str:
-        """(6n, 2n) bf16 block table for the ONE-matmul complex
-        right-DFT at x3 precision (pallas_fft.kstackr_matmul_last).
-
-        Columns [yr | yi]; row blocks match the runtime lane stack
-        [xrh, xrl, xrh, xih, xil, xih] under the x3 scheme
-        (xh@wh + xl@wh + xh@wl): [wrh wih; wrh wih; wrl wil;
-        -wih wrh; -wih wrh; -wil wrl].  Replaces the Karatsuba form's
-        nine matmul invocations (and its runtime xr+xi sum + two extra
-        operand splits) with one K=6n contraction — probe_overlap
-        measured the invocation count, not the FLOPs, as the cost."""
-        key = base_key + f"_ksr_{scale!r}"
-        if key not in self.host:
-            wr = self.host[base_key + "r"].astype(np.float64) * scale
-            wi = self.host[base_key + "i"].astype(np.float64) * scale
-            wrh, wrl = _presplit_hl(wr)
-            wih, wil = _presplit_hl(wi)
-            nih, nil = _presplit_hl(-wi)
-            rows = [
-                np.concatenate([wrh, wih], axis=1),
-                np.concatenate([wrh, wih], axis=1),
-                np.concatenate([wrl, wil], axis=1),
-                np.concatenate([nih, wrh], axis=1),
-                np.concatenate([nih, wrh], axis=1),
-                np.concatenate([nil, wrl], axis=1),
-            ]
-            self.host[key + "k"] = np.concatenate(rows, axis=0)
-            self.host[key] = None
-        return key
-
-    def vmat(self, n: int, sign: int, chunk: int, scale: float) -> str:
-        """Interleaved block-diagonal DFT matrix (see
-        twiddle.interleaved_dft_matrix) — used by the raw-I/O direct kernel."""
-        key = f"V{'f' if sign < 0 else 'b'}{n}_{chunk}_{scale!r}"
-        if key not in self.host:
-            self.host[key + "v"] = tw.interleaved_dft_matrix(
-                n, sign, self.dtype, scale, chunk
-            )
-            self.host[key] = None
-        return key
-
     def device_arrays(self, device=None) -> dict[str, Array]:
-        """Ship the bank to the device.  ``device`` (a ``jax.Device``) places
-        the arrays explicitly — ``commit(device=jax.devices()[1])`` keeps the
-        twiddle tables co-resident with the computation in multi-device
-        processes (the analogue of the reference allocating twiddle USM on
-        the commit queue's device, committed_descriptor_impl.hpp:737-752)."""
-        put = jnp.asarray
-        if device is not None and hasattr(device, "platform"):
-            put = functools.partial(jax.device_put, device=device)
-        out = {}
-        for k, v in self.host.items():
-            if v is None:
-                continue
-            out[k] = put(v)
-        return out
+        """Ship the bank to the device.  ``device`` (a ``jax.Device`` or a
+        ``jax.sharding.Sharding``) places the arrays explicitly —
+        ``commit(device=jax.devices()[1])`` keeps the twiddle tables
+        co-resident with the computation in multi-device processes (the
+        analogue of the reference allocating twiddle USM on the commit
+        queue's device, committed_descriptor_impl.hpp:737-752), and a
+        replicated ``NamedSharding`` puts one copy on every device of a
+        mesh.  Anything else (None, a DeviceConfig) uses the default
+        device."""
+        host = {k: v for k, v in self.host.items() if v is not None}
+        if isinstance(device, (jax.Device, jax.sharding.Sharding)):
+            return jax.device_put(host, device)
+        return {k: jnp.asarray(v) for k, v in host.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -758,15 +157,8 @@ class TwiddleBank:
 def complex_matmul_last(
     xr: Array, xi: Array, wr: Array, wi: Array, precision=None
 ) -> tuple[Array, Array]:
-    """(..., f) @ (f, k) complex matmul as four real MXU matmuls."""
+    """(..., f) @ (f, k) complex matmul as four real matmuls."""
     precision = resolve_precision(precision)
-    if precision in ("x3", "x4"):
-        mm = matmul_x3 if precision == "x3" else matmul_x4
-        rr = mm(xr, wr)
-        ii = mm(xi, wi)
-        ri = mm(xr, wi)
-        ir = mm(xi, wr)
-        return rr - ii, ri + ir
     rr = jnp.matmul(xr, wr, precision=precision)
     ii = jnp.matmul(xi, wi, precision=precision)
     ri = jnp.matmul(xr, wi, precision=precision)
@@ -797,8 +189,8 @@ def exec_chain_xla(
     """Run a Stockham factor chain over the last axis (length prod(factors)).
 
     Reference analogue: wi_dft's recursive Cooley–Tukey
-    (common/workitem.hpp:106-127) with each butterfly pass widened to a full
-    MXU matmul.
+    (common/workitem.hpp:106-127) with each butterfly pass widened to a
+    matmul.
     """
     n = math.prod(factors)
     if len(factors) == 1:
@@ -844,164 +236,17 @@ def collect_bank_keys(
     if keys is None:
         keys = {}
     if plan.level in (Level.DIRECT, Level.FUSED):
-        n = plan.n
         for f, m in _stage_shapes(plan.factors):
             keys[("W", f, sign)] = bank.dft(f, sign)
             if m > 1:
                 keys[("T", f, m, sign)] = bank.twiddle(f, m, sign)
-        fp32 = bank.dtype == np.float32
-        if plan.level == Level.DIRECT and fp32 and n % 8 == 0:
-            # Karatsuba presplit tables for the engine's widened DIRECT
-            # sub-DFT (kara_matmul_last: 9 bf16 matmuls instead of 12)
-            keys[("WK", n, sign)] = bank.mat_kara(keys[("W", n, sign)])
-        # Lane-oriented two-stage tables for the Mosaic-native [a, 128]
-        # shape: the in-kernel lane-DFT helper (ops/pallas_global._lane_dft)
-        # needs the (f, m)-oriented inter-factor twiddle and the
-        # column-permuted stage-B DFT for its natural-order k2-fold.
-        f2 = plan.factors
-        if len(f2) == 2 and f2[1] == 128 and 128 % f2[0] == 0:
-            a = f2[0]
-            g = 128 // a
-            keys[("U", a, 128, sign)] = bank.twiddle_fm(a, 128, sign)
-            keys[("P", 128, sign, g)] = bank.dft_permuted(128, sign, g)
-            if fp32:
-                # widened-stage tables (one-matmul stage A + Karatsuba
-                # stage B) for the engine's fused lane-DFT
-                keys[("KS", a, sign)] = bank.dft_kstack(a, sign)
-                keys[("PK", 128, sign, g)] = bank.mat_kara(
-                    keys[("P", 128, sign, g)]
-                )
     elif plan.level == Level.GLOBAL:
         g1, g2 = plan.sub
         keys[("T", g1.n, g2.n, sign)] = bank.twiddle(g1.n, g2.n, sign)
-        if g1.level == Level.DIRECT and g1.n % 128 == 0:
-            # factored resident pass-1 twiddle for the raw engine, one set
-            # per candidate lane tile (tables are ~100 KB each; eager build
-            # is cheap — small cos/sin matrices — and keeps the opt-in
-            # {"ftw": 1} autotuner variant measurable without a re-commit)
-            for t1c in FTW_T1_CANDIDATES:
-                if g2.n % t1c == 0:
-                    keys[("Q", g1.n, plan.n, sign, t1c)] = bank.btw_planes(
-                        g1.n, g2.n, plan.n, t1c, sign
-                    )
-        f1 = g1.factors
-        if (
-            g1.level == Level.FUSED
-            and len(f1) == 2
-            and f1[1] == 128
-            and 128 % f1[0] == 0
-        ):
-            keys[("Z", g1.n, g2.n, sign)] = bank.global_fused_twiddles(
-                f1[0], g2.n, plan.n, sign
-            )
-            for t1c in FTW_T1_CANDIDATES:
-                if g2.n % t1c == 0:
-                    keys[("ZQ", g1.n, g2.n, sign, t1c)] = (
-                        bank.global_fused_twiddles_factored(
-                            f1[0], g2.n, plan.n, t1c, sign
-                        )
-                    )
-        # butterfly-factored single-sweep engine ({"eng": 7}) tables:
-        # digit twiddles + the factored inter-factor twiddle + WK128
-        from .pallas_global_bf import bf_factor
-
-        a1b, a2b = bf_factor(g1.n), bf_factor(g2.n)
-        if a1b and a2b and bank.dtype == np.float32:
-            keys[("U", a1b, 128, sign)] = bank.twiddle_fm(a1b, 128, sign)
-            keys[("U", a2b, 128, sign)] = bank.twiddle_fm(a2b, 128, sign)
-            keys[("GA", g1.n, g2.n, sign)] = bank.bf_twiddle_hi(
-                a1b, g2.n, plan.n, sign
-            )
-            keys[("GB", g1.n, g2.n, sign)] = bank.bf_twiddle_lo(
-                g2.n, plan.n // a1b, sign
-            )
-            keys[("W", 128, sign)] = bank.dft(128, sign)
-            keys[("WK", 128, sign)] = bank.mat_kara(keys[("W", 128, sign)])
-            # bf2: resident factored GB per candidate lane tile (~100 KB
-            # each; replaces the streamed (128, g2) table's HBM traffic)
-            for t1c in BF2_T1_CANDIDATES:
-                if g2.n % t1c == 0 and g2.n // t1c >= 1:
-                    keys[("G2L", g2.n, t1c, sign)] = bank.bf_lo_factored(
-                        plan.n // a1b, t1c, g2.n // t1c, sign
-                    )
-        # eng-8 interleaved-native engine (ops/pallas_global_ilv.py):
-        # stacked DFT matmul tables + pair-trick twiddle tables.  Gated on
-        # the WIDER mixed-radix factor (2^a·3^b ≤ 16), so 3·2^k / 9·2^k
-        # splits like 384x384 qualify even though eng-7's bf does not.
-        from .pallas_global_ilv import ilv_factor
-
-        a1i, a2i = ilv_factor(g1.n), ilv_factor(g2.n)
-        if a1i and a2i and bank.dtype == np.float32:
-            keys[("ILL", sign)] = bank.mat_il_left(sign)
-            keys[("ILR", sign)] = bank.mat_il_right(sign)
-            keys[("UT", a1i, 128, sign)] = bank.twiddle_fm_t(
-                a1i, 128, sign
-            )
-            keys[("UI", a2i, 128, sign)] = bank.ilv_dup_cross(
-                bank.twiddle_fm(a2i, 128, sign)
-            )
-            keys[("GAI", g1.n, g2.n, sign)] = bank.ilv_dup_cross(
-                bank.bf_twiddle_hi(a1i, g2.n, plan.n, sign)
-            )
-            keys[("GBI", g1.n, g2.n, sign)] = bank.ilv_dup_cross(
-                bank.bf_twiddle_lo(g2.n, plan.n // a1i, sign)
-            )
         collect_bank_keys(g1, sign, bank, keys)
         collect_bank_keys(g2, sign, bank, keys)
     elif plan.level == Level.BLUESTEIN:
-        conv_n = plan.conv.n
-        keys[("B", plan.n, sign)] = bank.chirp(plan.n, conv_n, sign)
-        if plan.conv.level == Level.GLOBAL:
-            g1c, g2c = plan.conv.sub
-            keys[("BPOST", plan.n, sign)] = bank.bluestein_post(
-                plan.n, conv_n, g1c.n, g2c.n, sign
-            )
-            # fused three-pass engine tables (ops/pallas_bluestein):
-            # chirp prologue, swapped-factorization backward twiddle,
-            # final-chirp epilogue
-            from .pallas_bluestein import valid_rows
-
-            nv = valid_rows(plan.n, g2c.n)
-            if nv <= g1c.n and bank.dtype == np.float32:
-                keys[("BPRE", plan.n, sign)] = bank.bluestein_pre(
-                    plan.n, g2c.n, nv, sign
-                )
-                keys[("BFIN", plan.n, sign)] = bank.bluestein_final(
-                    plan.n, g2c.n, g1c.n, sign
-                )
-                keys[("T", g2c.n, g1c.n, +1)] = bank.twiddle(
-                    g2c.n, g1c.n, +1
-                )
-                # butterfly (bf) mode of the fused engine: factored lane
-                # DFTs with the fwd/bwd digit permutations cancelling
-                # inside the convolution; the three in-between tables are
-                # stored permuted (blane_permuted)
-                from .pallas_global_ilv import ilv_factor
-
-                a1c, a2c = ilv_factor(g1c.n), ilv_factor(g2c.n)
-                if a1c and a2c:
-                    twf = bank.twiddle(g1c.n, g2c.n, -1)
-                    keys[("T", g1c.n, g2c.n, -1)] = twf
-                    keys[("BLT", plan.n, sign)] = bank.blane_permuted(
-                        twf, None, g1c.n
-                    )
-                    keys[("BLP", plan.n, sign)] = bank.blane_permuted(
-                        keys[("BPOST", plan.n, sign)], g1c.n, g2c.n,
-                        suffixes=("fr", "fi"),
-                    )
-                    keys[("BLB", plan.n, sign)] = bank.blane_permuted(
-                        keys[("T", g2c.n, g1c.n, +1)], g1c.n, None
-                    )
-                    for s2 in (-1, +1):
-                        keys[("U", a1c, 128, s2)] = bank.twiddle_fm(
-                            a1c, 128, s2
-                        )
-                        keys[("U", a2c, 128, s2)] = bank.twiddle_fm(
-                            a2c, 128, s2
-                        )
-                        wkey = bank.dft(128, s2)
-                        keys[("W", 128, s2)] = wkey
-                        keys[("WK", 128, s2)] = bank.mat_kara(wkey)
+        keys[("B", plan.n, sign)] = bank.chirp(plan.n, plan.conv.n, sign)
         collect_bank_keys(plan.conv, -1, bank, keys)
         collect_bank_keys(plan.conv, +1, bank, keys)
     return keys
@@ -1020,64 +265,38 @@ def exec_plan(
     sign: int,
     bank_keys: dict,
     bank: dict[str, Array],
-    leaf_fn: Optional[Callable] = None,
     precision=None,
 ) -> tuple[Array, Array]:
-    """Execute a plan tree over the last axis of (xr, xi).
-
-    ``leaf_fn(xr, xi, plan, sign, bank) -> (yr, yi) or None`` lets the
-    Pallas backend intercept DIRECT/FUSED leaves; None falls back to the XLA
-    chain.
-    """
+    """Execute a plan tree over the last axis of (xr, xi)."""
     if plan.level in (Level.DIRECT, Level.FUSED):
-        if leaf_fn is not None:
-            res = leaf_fn(xr, xi, plan, sign, bank)
-            if res is not None:
-                return res
         return exec_chain_xla(
             xr, xi, plan.factors, sign, bank_keys, bank, precision
         )
 
     if plan.level == Level.GLOBAL:
-        if leaf_fn is not None:
-            res = leaf_fn(xr, xi, plan, sign, bank)
-            if res is not None:
-                return res
         g1, g2 = plan.sub
         f, m = g1.n, g2.n
         lead = xr.shape[:-1]
         xr = xr.reshape(*lead, f, m).swapaxes(-2, -1)
         xi = xi.reshape(*lead, f, m).swapaxes(-2, -1)
-        ar, ai = exec_plan(
-            xr, xi, g1, sign, bank_keys, bank, leaf_fn, precision
-        )
+        ar, ai = exec_plan(xr, xi, g1, sign, bank_keys, bank, precision)
         tkey = bank_keys[("T", f, m, sign)]
         ar, ai = complex_mul(ar, ai, bank[tkey + "r"], bank[tkey + "i"])
         ar = ar.swapaxes(-2, -1)
         ai = ai.swapaxes(-2, -1)
-        cr, ci = exec_plan(
-            ar, ai, g2, sign, bank_keys, bank, leaf_fn, precision
-        )
+        cr, ci = exec_plan(ar, ai, g2, sign, bank_keys, bank, precision)
         cr = cr.swapaxes(-2, -1).reshape(*lead, plan.n)
         ci = ci.swapaxes(-2, -1).reshape(*lead, plan.n)
         return cr, ci
 
     if plan.level == Level.BLUESTEIN:
-        if leaf_fn is not None:
-            # fused three-pass chirp-z engine (ops/pallas_bluestein);
-            # None -> generic chirp-mul/pad + convolution chain below
-            res = leaf_fn(xr, xi, plan, sign, bank)
-            if res is not None:
-                return res
-        return _exec_bluestein(
-            xr, xi, plan, sign, bank_keys, bank, leaf_fn, precision
-        )
+        return _exec_bluestein(xr, xi, plan, sign, bank_keys, bank, precision)
 
     raise AssertionError(f"unknown level {plan.level}")
 
 
 def _exec_bluestein(
-    xr, xi, plan: Plan1D, sign, bank_keys, bank, leaf_fn, precision=None
+    xr, xi, plan: Plan1D, sign, bank_keys, bank, precision=None
 ) -> tuple[Array, Array]:
     """Chirp-z transform: X[k] = c[k] · IDFT_M(DFT_M(x·c) · DFT_M(b))[k]
     with c[j] = exp(sign·πi·j²/n).  Capability beyond the reference, which
@@ -1090,37 +309,8 @@ def _exec_bluestein(
     pad = [(0, 0)] * (ar.ndim - 1) + [(0, conv_n - n)]
     ar = jnp.pad(ar, pad)
     ai = jnp.pad(ai, pad)
-
-    # Fused path: fold b̂ into conv-forward pass 2 and the final chirp
-    # (zero-extended) into conv-backward pass 2 — two fewer read+write
-    # sweeps of the conv-sized data (round-2 VERDICT weak #7).
-    pkey = bank_keys.get(("BPOST", n, sign))
-    if pkey is not None and leaf_fn is not None:
-        res = leaf_fn(
-            ar, ai, plan.conv, -1, bank,
-            post=(bank[pkey + "fr"], bank[pkey + "fi"]),
-        )
-        if res is not None:
-            fr, fi = res
-            res2 = leaf_fn(
-                fr, fi, plan.conv, +1, bank,
-                post=(bank[pkey + "gr"], bank[pkey + "gi"]),
-            )
-            if res2 is not None:
-                yr, yi = res2
-                return yr[..., :n], yi[..., :n]
-            # engine declined the backward pass: b̂ is already applied
-            yr, yi = exec_plan(
-                fr, fi, plan.conv, +1, bank_keys, bank, leaf_fn, precision
-            )
-            return complex_mul(yr[..., :n], yi[..., :n], cr, ci)
-
-    fr, fi = exec_plan(
-        ar, ai, plan.conv, -1, bank_keys, bank, leaf_fn, precision
-    )
+    fr, fi = exec_plan(ar, ai, plan.conv, -1, bank_keys, bank, precision)
     fr, fi = complex_mul(fr, fi, bank[bkey + "br"], bank[bkey + "bi"])
-    yr, yi = exec_plan(
-        fr, fi, plan.conv, +1, bank_keys, bank, leaf_fn, precision
-    )
+    yr, yi = exec_plan(fr, fi, plan.conv, +1, bank_keys, bank, precision)
     # 1/conv_n is pre-folded into the b table (TwiddleBank.chirp)
     return complex_mul(yr[..., :n], yi[..., :n], cr, ci)

@@ -1,10 +1,12 @@
 """Device-mesh helpers for multi-chip execution.
 
 The reference is a single-device library (SURVEY.md §2: no MPI/NCCL — its
-only cross-"device" structure is the SYCL event DAG).  Multi-chip support
+only cross-"device" structure is the SYCL event DAG).  Multi-device support
 here is a pure extension: batch data-parallelism rides a 1D mesh with no
 collectives at all, and the distributed large-N transform (sharded.py)
-shards the transform dimension with all-to-all collectives over ICI.
+shards the transform dimension with all-to-all collectives between the
+devices.  The mesh is a plain grid over ``jax.devices()``: it follows the
+algorithm's axes, not a physical topology.
 """
 
 from __future__ import annotations

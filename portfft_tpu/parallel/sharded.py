@@ -5,11 +5,11 @@ Capability beyond the reference (single-device; SURVEY.md §5.8 marks all
 distributed parallelism **absent**).  Two strategies:
 
 * :func:`batch_parallel` — embarrassingly parallel batch sharding: each
-  device transforms its slice of the batch; zero collectives.  The TPU
-  analogue of scaling the reference's batch loop across chips.
+  device transforms its slice of the batch; zero collectives.  The
+  analogue of scaling the reference's batch loop across devices.
 * :class:`DistributedFFT` — the transform dimension itself is sharded
   ("sequence parallel" for FFTs): a four-step decomposition n = G1·G2 where
-  the inter-factor redistribution is ``all_to_all`` over the ICI mesh axis —
+  the inter-factor redistribution is ``all_to_all`` over a mesh axis —
   the distributed generalization of the reference global engine's
   inter-factor transposes (common/global.hpp:192-272).
 
@@ -21,7 +21,6 @@ distributed parallelism **absent**).  Two strategies:
 from __future__ import annotations
 
 import math
-from functools import partial
 from typing import Optional
 
 import jax
@@ -34,33 +33,50 @@ from ..ops import xla_fft
 from ..planner import plan_1d
 
 
+def replicated_bank(bank: dict, mesh: Mesh) -> dict:
+    """One copy of every twiddle table on each device of ``mesh``, placed
+    once — a bank left on one device would be broadcast from it on every
+    call."""
+    return jax.device_put(bank, NamedSharding(mesh, P()))
+
+
+def _per_shard(mesh: Mesh, local, in_specs, out_specs):
+    """jit of ``local`` run on each device's own batch slice: chunking
+    (``CommittedDescriptor.chunk_rows``) is then decided on the local
+    batch, and no step moves data between devices."""
+    return jax.jit(
+        jax.shard_map(
+            local,
+            mesh=mesh,
+            in_specs=in_specs,
+            out_specs=out_specs,
+            check_vma=False,
+        )
+    )
+
+
 def batch_parallel(committed, mesh: Mesh, axis: str = "dp", direction=None):
     """Batch-sharded plane transform.
 
     Returns ``fn(xr, xi) -> (yr, yi)`` operating on canonical
     ``(batch, *lengths)`` float planes sharded over ``axis`` on the batch
-    dimension.  Uses the committed plan's core executor per shard — no
-    collectives are inserted (batch parallelism is embarrassingly parallel).
+    dimension.  Each device runs the committed plan's core executor on its
+    own slice — no collectives (batch parallelism is embarrassingly
+    parallel).
     """
     from ..enums import Direction
 
     direction = direction or Direction.FORWARD
     ndim = len(committed.descriptor.lengths)
     spec = P(axis, *([None] * ndim))
-    out_sharding = (
-        NamedSharding(mesh, spec),
-        NamedSharding(mesh, spec),
+    bank = replicated_bank(committed._bank_arrays, mesh)
+    mapped = _per_shard(
+        mesh,
+        lambda xr, xi, b: committed._core(xr, xi, direction, b),
+        (spec, spec, P()),
+        (spec, spec),
     )
-
-    bank = committed._bank_arrays
-
-    @partial(jax.jit, out_shardings=out_sharding)
-    def fn(xr, xi):
-        xr = jax.lax.with_sharding_constraint(xr, NamedSharding(mesh, spec))
-        xi = jax.lax.with_sharding_constraint(xi, NamedSharding(mesh, spec))
-        return committed._core(xr, xi, direction, bank)
-
-    return fn
+    return lambda xr, xi: mapped(xr, xi, bank)
 
 
 def batch_parallel_real(committed, mesh: Mesh, axis: str, direction=None):
@@ -75,25 +91,23 @@ def batch_parallel_real(committed, mesh: Mesh, axis: str, direction=None):
     direction = direction or Direction.FORWARD
     ndim = len(committed.descriptor.lengths)
     spec = P(axis, *([None] * ndim))
-    shard = NamedSharding(mesh, spec)
-    bank = committed._bank_arrays
+    bank = replicated_bank(committed._bank_arrays, mesh)
 
     if direction == Direction.FORWARD:
-
-        @partial(jax.jit, out_shardings=(shard, shard))
-        def fn(x, _=None):
-            x = jax.lax.with_sharding_constraint(x, shard)
-            return committed._core_real_forward(x, bank)
-
-    else:
-
-        @partial(jax.jit, out_shardings=shard)
-        def fn(xr, xi):
-            xr = jax.lax.with_sharding_constraint(xr, shard)
-            xi = jax.lax.with_sharding_constraint(xi, shard)
-            return committed._core_real_backward(xr, xi, bank)
-
-    return fn
+        mapped = _per_shard(
+            mesh,
+            lambda x, b: committed._core_real_forward(x, b),
+            (spec, P()),
+            (spec, spec),
+        )
+        return lambda x, _=None: mapped(x, bank)
+    mapped = _per_shard(
+        mesh,
+        lambda xr, xi, b: committed._core_real_backward(xr, xi, b),
+        (spec, spec, P()),
+        spec,
+    )
+    return lambda xr, xi: mapped(xr, xi, bank)
 
 
 def _balanced_split(n: int, p: int) -> tuple[int, int]:
@@ -139,19 +153,13 @@ class DistributedFFT:
         precision=np.float32,
         natural_order: bool = True,
         device=None,
-        use_pallas: Optional[bool] = None,
     ):
-        import jax as _jax
-
         self.n = n
         self.mesh = mesh
         self.seq_axis = seq_axis
         self.batch_axis = batch_axis
         self.natural_order = natural_order
         self.precision = np.dtype(precision)
-        if use_pallas is None:
-            use_pallas = _jax.default_backend() == "tpu"
-        self.use_pallas = use_pallas and self.precision == np.float32
         from ..exceptions import UnsupportedConfiguration
 
         if seq_axis not in mesh.shape:
@@ -190,7 +198,8 @@ class DistributedFFT:
                 for s in ("r", "i")
             )
             bank.host.pop(tkey, None)
-        self._bank_arrays = bank.device_arrays(device)
+        # the small sub-plan tables, one copy per device of the mesh
+        self._bank_arrays = bank.device_arrays(NamedSharding(mesh, P()))
         self._fns: dict = {}
 
     # -- sharding specs ------------------------------------------------
@@ -208,21 +217,6 @@ class DistributedFFT:
         seq = self.seq_axis
         keys = self._bank_keys
 
-        leaf = None
-        if self.use_pallas:
-            import functools
-
-            from ..ops import pallas_fft
-
-            leaf = functools.partial(
-                pallas_fft.leaf_dispatch,
-                bank_keys=keys,
-                # the same DeviceConfig the plans were sized against —
-                # a mismatch would gate kernel tiles on a different VMEM
-                # budget than the planner assumed
-                config=self._cfg,
-            )
-
         def fn(xr, xi, tw_r, tw_i, bank):
             # local (Bl, n/p) = (Bl, g1/p, g2) slab of the (g1, g2) view
             bl = xr.shape[0]
@@ -234,9 +228,7 @@ class DistributedFFT:
             # local FFT over g1 (contiguous after transpose)
             xr = jnp.swapaxes(xr, 1, 2)  # (Bl, g2/p, g1)
             xi = jnp.swapaxes(xi, 1, 2)
-            xr, xi = xla_fft.exec_plan(
-                xr, xi, self.plan1, sign, keys, bank, leaf
-            )
+            xr, xi = xla_fft.exec_plan(xr, xi, self.plan1, sign, keys, bank)
             # inter-factor twiddle W_n^{k1·g2}: tw is the local (g2/p, g1)
             # slice of the (g2, g1) table
             xr, xi = xla_fft.complex_mul(xr, xi, tw_r, tw_i)
@@ -246,9 +238,7 @@ class DistributedFFT:
             # local FFT over g2
             xr = jnp.swapaxes(xr, 1, 2)  # (Bl, k1/p, g2)
             xi = jnp.swapaxes(xi, 1, 2)
-            xr, xi = xla_fft.exec_plan(
-                xr, xi, self.plan2, sign, keys, bank, leaf
-            )
+            xr, xi = xla_fft.exec_plan(xr, xi, self.plan2, sign, keys, bank)
             # C[k1, k2]; X[k1 + g1*k2] = C[k1, k2]
             if self.natural_order:
                 # natural view (k2, k1): transpose locally then exchange so
@@ -263,26 +253,19 @@ class DistributedFFT:
         return fn
 
     def _build(self, sign: int):
-        try:
-            from jax import shard_map
-        except ImportError:  # older jax
-            from jax.experimental.shard_map import shard_map
-
         x_spec = self._x_spec()
         t_spec = P(self.seq_axis, None)
         bank_spec = P()  # replicated (small sub-plan) tables
         tw_r, tw_i = self._tw[sign]
 
         local = self._local_fn(sign)
-        kwargs = dict(
+        mapped = jax.shard_map(
+            local,
             mesh=self.mesh,
             in_specs=(x_spec, x_spec, t_spec, t_spec, bank_spec),
             out_specs=(x_spec, x_spec),
+            check_vma=False,
         )
-        try:
-            mapped = shard_map(local, check_vma=False, **kwargs)
-        except TypeError:  # older jax spelling
-            mapped = shard_map(local, check_rep=False, **kwargs)
 
         @jax.jit
         def fn(xr, xi):
@@ -305,8 +288,7 @@ class DistributedFFT:
 class DistributedCommitted:
     """Descriptor-level distributed plan — ``Descriptor.commit(mesh=...)``.
 
-    Makes the distributed path reachable through the public two-phase API
-    (round-2 VERDICT missing #5: DistributedFFT took raw planes only).
+    Makes the distributed path reachable through the public two-phase API.
     Semantics: the canonical ``(batch, n)`` float planes are sharded over
     ``batch_axis``; when ``seq_axis`` is given the transform dimension is
     additionally sharded and executed by :class:`DistributedFFT`'s
@@ -326,7 +308,6 @@ class DistributedCommitted:
         batch_axis: str = "dp",
         seq_axis: Optional[str] = None,
         device=None,
-        use_pallas: Optional[bool] = None,
         **options,
     ):
         from ..enums import Direction, Domain, Layout
@@ -382,14 +363,11 @@ class DistributedCommitted:
                 batch_axis=batch_axis,
                 precision=self.precision,
                 device=device,
-                use_pallas=use_pallas,
             )
         else:
             from ..committed import CommittedDescriptor
 
-            self.committed = CommittedDescriptor(
-                d, device=device, use_pallas=use_pallas, **options
-            )
+            self.committed = CommittedDescriptor(d, device=device, **options)
         self._fns: dict = {}
 
     def input_sharding(self) -> NamedSharding:

@@ -1,25 +1,26 @@
 """Transform planner: factorization and implementation-level selection.
 
-TPU-native analogue of the reference commit engine's
-``prepare_implementation`` (committed_descriptor_impl.hpp:211-313) and the
-factorization helpers (common/workitem.hpp:136-144 ``factorize``,
-common/subgroup.hpp:227-238 ``factorize_sg``, utils.hpp:94-132
-``factorize_input``).  Where the reference sizes levels by registers /
-subgroup width / local memory / LLC, this planner sizes them by the MXU
-contraction width (128), the VMEM capacity, and HBM.
+Analogue of the reference commit engine's ``prepare_implementation``
+(committed_descriptor_impl.hpp:211-313) and the factorization helpers
+(common/workitem.hpp:136-144 ``factorize``, common/subgroup.hpp:227-238
+``factorize_sg``, utils.hpp:94-132 ``factorize_input``).  Where the
+reference sizes levels by registers / subgroup width / local memory / LLC,
+this planner sizes them by the knobs of :class:`~.config.DeviceConfig`:
+the largest matmul factor, the DIRECT threshold and working-set budgets.
 
 A 1D size decomposes into a chain of factors, each ≤ ``max_factor`` (128):
-every factor pass is one complex matmul against that factor's DFT matrix on
-the MXU — primality of a factor is irrelevant, unlike the reference's
-register-based naive-DFT fallback.  Level selection:
+every factor pass is one complex matmul against that factor's DFT matrix —
+primality of a factor is irrelevant, unlike the reference's register-based
+naive-DFT fallback.  Level selection:
 
-* DIRECT    — n ≤ 128: the whole transform is one DFT matmul.
-* FUSED     — the full factor chain + twiddles + a batch tile fit in VMEM:
-              one Pallas kernel, one HBM read + write per element.
-* GLOBAL    — n = G1·G2 four-step decomposition with FUSED sub-transforms and
-              HBM-level transposes (reference global engine,
-              global_dispatcher.hpp:312-412).
-* BLUESTEIN — n has a prime factor > 128: chirp-z via a padded power-of-two
+* DIRECT    — n ≤ ``direct_threshold``: the whole transform is one DFT
+              matmul.
+* FUSED     — the factor chain's working set fits ``fused_budget_bytes``:
+              one Stockham chain of matmul stages.
+* GLOBAL    — n = G1·G2 four-step decomposition with DIRECT/FUSED
+              sub-transforms and transposes between them (reference
+              global engine, global_dispatcher.hpp:312-412).
+* BLUESTEIN — n has a prime factor > ``max_factor``: chirp-z via a padded
               convolution (the reference throws for these sizes,
               committed_descriptor_impl.hpp:240-241).
 """
@@ -54,12 +55,13 @@ def largest_prime_factor(n: int) -> int:
 
 def factor_chain(n: int, max_factor: int) -> Optional[list[int]]:
     """Split ``n`` into factors each ≤ ``max_factor``, greedily largest-first
-    (fills the MXU contraction dimension; fewest passes).
+    (largest matmul stages; fewest passes).
 
     Returns None when ``n`` has a prime factor exceeding ``max_factor``
     (→ Bluestein).  Analogue of reference ``factorize_input``
-    (utils.hpp:94-132) with the MXU width as the per-pass capability bound.
-    Uses the native C++ core (native/planner.cpp) when available.
+    (utils.hpp:94-132) with the matmul factor bound as the per-pass
+    capability bound.  Uses the native C++ core (native/planner.cpp) when
+    available.
     """
     try:
         from . import native
@@ -87,8 +89,8 @@ def factor_chain(n: int, max_factor: int) -> Optional[list[int]]:
 def bluestein_conv_n(n: int, single_pass_cap: int = 128 * 256) -> int:
     """Smallest highly-composite convolution length ≥ 2n−1 for the chirp-z
     transform.  The classic choice is the next power of two, but 3·2^k and
-    9·2^k sizes also plan to efficient kernel shapes and cut convolution
-    traffic AND lane-DFT compute — n=65537 needs 131073, where 2^18 =
+    9·2^k sizes also plan to balanced four-step splits and cut convolution
+    traffic AND DFT-stage compute — n=65537 needs 131073, where 2^18 =
     262144 overshoots by 2× and 3·2^16 = 196608 plans as 512×384 (896
     cMAC/point), but 9·2^14 = 147456 plans as 384×384: 25% less traffic
     and 14% fewer cMAC/point than 3·2^16.  (The reference has no Bluestein
@@ -96,13 +98,11 @@ def bluestein_conv_n(n: int, single_pass_cap: int = 128 * 256) -> int:
     need = 2 * n - 1
     best = 1 << need.bit_length()
     # Odd parts 3 and 9 only: their splits (3·2^j or 9·2^j halves with
-    # 128 | G2) keep every kernel engine available; odd part 5 can strand
-    # the planner on splits like 512×320 whose G2 breaks the 128-lane rule.
-    # 9·2^k is only taken in two-pass GLOBAL territory (beyond
-    # ``single_pass_cap``, default 2·max_factor·lane = 256·128 — the same
-    # bound the single-pass two-stage gate in :func:`plan_1d` enforces),
-    # where its balanced splits (e.g. 384×384) were measured to win; below
-    # that the single-pass fused kernels prefer 2^k / 3·2^k stage shapes.
+    # 128 | G2) stay on the planner's two-stage shapes; odd part 5 can
+    # strand the planner on splits like 512×320.  9·2^k is only taken in
+    # two-pass GLOBAL territory (beyond ``single_pass_cap``, the same
+    # 2·max_factor·two_stage_width bound the two-stage gate in
+    # :func:`plan_1d` enforces).
     for odd in (3, 9):
         c = odd << max(0, (need // odd).bit_length())
         while c < need:
@@ -134,10 +134,8 @@ class Plan1D:
     factors: list[int]
     #: GLOBAL: the two four-step sub-plans (n = sub[0].n * sub[1].n).
     sub: Optional[tuple["Plan1D", "Plan1D"]] = None
-    #: BLUESTEIN: padded convolution length plan (power of two ≥ 2n-1).
+    #: BLUESTEIN: padded convolution length plan (highly composite ≥ 2n-1).
     conv: Optional["Plan1D"] = None
-    #: Batch rows processed per Pallas grid step at this level.
-    batch_tile: int = 8
 
     def describe(self) -> str:
         if self.level == Level.GLOBAL:
@@ -149,17 +147,15 @@ class Plan1D:
         return f"{self.level.value}(n={self.n}, factors={self.factors})"
 
 
-def fused_vmem_bytes(
-    n: int, factors: list[int], batch_tile: int, itemsize: int
+def fused_working_set_bytes(
+    n: int, factors: list[int], rows: int, itemsize: int
 ) -> int:
-    """Estimated VMEM working set of the fused kernel.
-
-    Input and output blocks are double-buffered by the Pallas pipeline; two
-    scratch planes hold the ping-pong between factor stages; DFT matrices and
-    inter-factor twiddles are resident once (their grid index is constant).
-    """
-    data = batch_tile * n * itemsize
-    in_out = 2 * (2 * data) * 2  # (re+im) in and out, ×2 double buffering
+    """Working-set estimate of a FUSED chain over ``rows`` batch rows:
+    double-buffered input and output planes, two ping-pong planes between
+    factor stages, and each factor's DFT matrix and inter-factor twiddles
+    once.  The planner compares it with ``fused_budget_bytes``."""
+    data = rows * n * itemsize
+    in_out = 2 * (2 * data) * 2  # (re+im) in and out, double-buffered
     scratch = 2 * (2 * data)  # ping/pong planes
     tables = sum(2 * f * f * itemsize for f in set(factors))
     tw = sum(2 * f * m * itemsize for f, m in stage_shapes(factors) if m > 1)
@@ -170,60 +166,52 @@ def _fused_capable(n: int, factors, cfg: DeviceConfig, itemsize: int) -> bool:
     if factors is None:
         return False
     return (
-        fused_vmem_bytes(n, factors, cfg.sublane, itemsize) <= cfg.vmem_budget
+        fused_working_set_bytes(n, factors, cfg.fused_rows, itemsize)
+        <= cfg.fused_budget_bytes
     )
 
 
-def two_stage_vmem_bytes(a: int, bt: int, itemsize: int = 4) -> int:
-    """VMEM working set of the raw two-stage [a, 128] kernel at batch tile
-    ``bt`` — the SINGLE source of this estimate (the kernel, the planner
-    and the autotuner all consume it; hand-copies drifted in round 1)."""
-    n = a * 128
-    ln = bt * 128
+def two_stage_working_set_bytes(
+    a: int, rows: int, width: int, itemsize: int
+) -> int:
+    """Working-set estimate of the two-stage chain [a, width] over
+    ``rows`` batch rows (input/output planes double-buffered, plane
+    scratch, stage tensors and their split temporaries)."""
+    n = a * width
+    ln = rows * width
     return (
-        2 * 2 * bt * 2 * n * itemsize      # in/out flat blocks, 2 buffers
-        + 2 * bt * a * 128 * itemsize      # plane scratches
-        + 8 * a * ln * itemsize            # stage tensors + bf16 temps
+        2 * 2 * rows * 2 * n * itemsize    # in/out planes, 2 buffers
+        + 2 * rows * a * width * itemsize  # plane scratches
+        + 8 * a * ln * itemsize            # stage tensors + split temps
         + 2 * a * ln * itemsize            # interleave scratch
     )
 
 
-def _two_stage_vmem_ok(a: int, cfg: DeviceConfig, itemsize: int) -> bool:
-    """True when the raw two-stage kernel (ops/pallas_fft.py
-    _fused2_raw_v2_kernel) fits VMEM at its smallest legal batch tile for
-    n = a·128.  For a ≥ 64 the k2-fold is trivial (g ≤ 2) and bt can drop
-    to 128/gcd(a,128), which keeps the working set bounded even at
-    n = 256·128 = 32768 — a single one-pass kernel where the generic
-    fused estimate (8-row tiles) would force the two-pass engine."""
-    bt = 128 // math.gcd(a, 128)
-    return two_stage_vmem_bytes(a, bt, itemsize) <= cfg.vmem_budget
-
-
-def _pick_batch_tile(n, factors, cfg: DeviceConfig, itemsize: int) -> int:
-    """Largest power-of-two batch tile (≥ sublane) that keeps the fused
-    working set within budget."""
-    bt = cfg.batch_tile
-    while bt > cfg.sublane:
-        if fused_vmem_bytes(n, factors, bt, itemsize) <= cfg.vmem_budget:
-            return bt
-        bt //= 2
-    return cfg.sublane
+def _two_stage_ok(a: int, cfg: DeviceConfig, itemsize: int) -> bool:
+    """True when the two-stage chain [a, w] fits ``fused_budget_bytes`` at
+    its smallest row tile w/gcd(a, w).  For a ≥ 64 that tile stays small,
+    which keeps n = 256·128 = 32768 on the one-pass FUSED level."""
+    w = cfg.two_stage_width
+    rows = w // math.gcd(a, w)
+    return (
+        two_stage_working_set_bytes(a, rows, w, itemsize)
+        <= cfg.fused_budget_bytes
+    )
 
 
 def _global_split(n: int, cfg: DeviceConfig, itemsize: int) -> tuple[int, int]:
-    """Four-step split n = G1·G2 for the two-pass Pallas engine.
+    """Four-step split n = G1·G2.
 
     Preference order (analogue of the reference's L2-chunked global
-    factorization, committed_descriptor_impl.hpp:271-312, re-ranked for the
-    TPU engine's kernel shapes):
+    factorization, committed_descriptor_impl.hpp:271-312):
 
     1. Both halves DIRECT (≤ direct_threshold, 8-aligned), balanced — both
-       passes are proven single-matmul kernels.
-    2. G1 = a·128 lane-FUSED (a | 128) with G2 DIRECT, minimizing the total
-       MXU work (a + 128 + G2) per element — only pass 1 runs the two-stage
-       pipeline, whose VMEM working set at the minimum raw tile must fit.
-    3. Legacy balanced search over anything plannable (fused × fused, odd
-       radices) — correctness envelope; the engine may decline these.
+       passes are single-matmul stages.
+    2. G1 = a·w two-stage FUSED (a | 128, w = two_stage_width) with G2
+       DIRECT, minimizing the matmul work (a + w + G2) per element, with
+       the first pass's working set within ``global_pass_budget_bytes``.
+    3. Balanced search over anything plannable (fused × fused, odd
+       radices).
     """
     try:
         from . import native
@@ -232,10 +220,10 @@ def _global_split(n: int, cfg: DeviceConfig, itemsize: int) -> tuple[int, int]:
             n,
             cfg.max_factor,
             cfg.direct_threshold,
-            cfg.sublane,
+            cfg.fused_rows,
             itemsize,
-            cfg.vmem_budget,
-            int(cfg.vmem_bytes * 3 / 4),
+            cfg.fused_budget_bytes,
+            cfg.global_pass_budget_bytes,
         )
         if split is not None:
             return split
@@ -255,8 +243,7 @@ def _global_split(n: int, cfg: DeviceConfig, itemsize: int) -> tuple[int, int]:
             and g1 % 8 == 0
         ):
             return g2, g1
-    # 2) one-fused: G1 = a·128, G2 direct, cheapest MXU work first
-    pass_budget = int(cfg.vmem_bytes * 3 / 4)
+    # 2) one-fused: G1 = a·128, G2 direct, cheapest matmul work first
     best = None
     for a in (8, 16, 32, 64, 128):
         g1 = a * 128
@@ -265,16 +252,18 @@ def _global_split(n: int, cfg: DeviceConfig, itemsize: int) -> tuple[int, int]:
         g2 = n // g1
         if not (1 < g2 <= cfg.direct_threshold and g2 % 8 == 0):
             continue
-        # pass-1 working set at the minimum raw tile t=64 (matches
-        # ops/pallas_global._pick_tile's estimate)
-        if 18 * 64 * g1 * itemsize + 2 * 128 * a * 128 * itemsize > pass_budget:
+        # first-pass working set at a 64-row tile
+        if (
+            18 * 64 * g1 * itemsize + 2 * 128 * a * 128 * itemsize
+            > cfg.global_pass_budget_bytes
+        ):
             continue
         cost = a + 128 + g2
         if best is None or cost < best[0]:
             best = (cost, g1, g2)
     if best is not None:
         return best[1], best[2]
-    # 3) legacy balanced search
+    # 3) balanced search over anything plannable
     fallback = None
     for g1 in range(root, 1, -1):
         if n % g1:
@@ -300,8 +289,8 @@ def plan_1d(n: int, cfg: DeviceConfig, itemsize: int) -> Plan1D:
     """Plan one transform dimension (reference prepare_implementation,
     committed_descriptor_impl.hpp:211-313)."""
     if n <= cfg.direct_threshold:
-        # One DFT-matrix matmul — primality is irrelevant on the MXU.
-        return Plan1D(n=n, level=Level.DIRECT, factors=[n], batch_tile=cfg.batch_tile)
+        # One DFT-matrix matmul — primality is irrelevant.
+        return Plan1D(n=n, level=Level.DIRECT, factors=[n])
 
     chain = factor_chain(n, cfg.max_factor)
     if chain is None:
@@ -314,7 +303,9 @@ def plan_1d(n: int, cfg: DeviceConfig, itemsize: int) -> Plan1D:
                 level=Level.BLUESTEIN,
                 factors=[],
                 conv=plan_1d(
-                    bluestein_conv_n(n, 2 * cfg.max_factor * cfg.lane),
+                    bluestein_conv_n(
+                        n, 2 * cfg.max_factor * cfg.two_stage_width
+                    ),
                     cfg,
                     itemsize,
                 ),
@@ -326,42 +317,20 @@ def plan_1d(n: int, cfg: DeviceConfig, itemsize: int) -> Plan1D:
             sub=(plan_1d(n // p, cfg, itemsize), plan_1d(p, cfg, itemsize)),
         )
 
-    # Prefer the Mosaic-native two-stage shape [a, 128]: every kernel op is
-    # a matmul / last-two-dims transpose / 128-multiple-lane reshape (see
-    # ops/pallas_fft.py).  a may exceed max_factor — stage A is still one
-    # MXU matmul of contraction depth a — so this single-pass form covers
-    # n up to 256·128 = 32768 (measured on v5e: a=256/bt=4 streams 124
-    # GB/s; a=512 forces bt=1 and drops to 70, losing to the two-pass
-    # engine's 107 — hence the 2·max_factor cap).
-    a = n // cfg.lane
-    if (
-        n % cfg.lane == 0
-        and 3 <= a <= 2 * cfg.max_factor
-        and _two_stage_vmem_ok(a, cfg, itemsize)
+    # Prefer the two-stage chain [a, w]: stage A contracts depth a (which
+    # may exceed max_factor), so this one-pass form covers n up to
+    # 2·max_factor·w = 256·128 = 32768.
+    w = cfg.two_stage_width
+    a = n // w
+    if n % w == 0 and 3 <= a <= 2 * cfg.max_factor and _two_stage_ok(
+        a, cfg, itemsize
     ):
-        two = [a, cfg.lane]
-        return Plan1D(
-            n=n,
-            level=Level.FUSED,
-            factors=two,
-            batch_tile=_pick_batch_tile(n, two, cfg, itemsize),
-        )
+        return Plan1D(n=n, level=Level.FUSED, factors=[a, w])
 
     if _fused_capable(n, chain, cfg, itemsize):
-        return Plan1D(
-            n=n,
-            level=Level.FUSED,
-            factors=chain,
-            batch_tile=_pick_batch_tile(n, chain, cfg, itemsize),
-        )
+        return Plan1D(n=n, level=Level.FUSED, factors=chain)
 
     g1, g2 = _global_split(n, cfg, itemsize)
-    # measured split override (scripts/tune.py / CommittedDescriptor.autotune)
-    from . import tuning
-
-    tuned = tuning.lookup(cfg.name, "global_split", f"n{n}")
-    if tuned and tuned.get("g1", 0) * tuned.get("g2", 0) == n:
-        g1, g2 = tuned["g1"], tuned["g2"]
     return Plan1D(
         n=n,
         level=Level.GLOBAL,

@@ -1,6 +1,6 @@
 """Twiddle-factor and DFT-matrix precomputation.
 
-TPU-native replacement of the reference's twiddle machinery: instead of
+Replacement of the reference's twiddle machinery: instead of
 constexpr register tables (common/twiddle.hpp, scripts/generate_twiddles.py)
 and on-device twiddle-precompute kernels (subgroup_dispatcher.hpp:666-693,
 workgroup_dispatcher.hpp:382-443, global_dispatcher.hpp:109-256), all factor
@@ -8,10 +8,10 @@ DFT matrices and inter-factor twiddles are computed on the host **in float64**
 (as the reference's global path does, global_dispatcher.hpp:153-161), cast to
 the compute precision, and shipped to the device once at commit time.
 
-On TPU the unit of compute is the MXU, so the "twiddle table" of a factor f is
-the full f×f DFT matrix, stored as a separate real and imaginary plane:
-a radix-f butterfly pass over M sub-transforms becomes a (batch·M, f)·(f, f)
-complex matmul = 4 real MXU matmuls.
+The executor's unit of compute is a matmul, so the "twiddle table" of a
+factor f is the full f×f DFT matrix, stored as a separate real and imaginary
+plane: a radix-f butterfly pass over M sub-transforms becomes a
+(batch·M, f)·(f, f) complex matmul = 4 real matmuls.
 """
 
 from __future__ import annotations
@@ -68,61 +68,6 @@ def twiddles(f: int, m: int, sign: int, dtype) -> tuple[np.ndarray, np.ndarray]:
     """Real/imag planes of the (f, m) inter-factor twiddle array."""
     re, im = _twiddles_f64(f, m, sign)
     return re.astype(dtype), im.astype(dtype)
-
-
-@functools.lru_cache(maxsize=64)
-def _twiddles_n_f64(f: int, m: int, n: int, sign: int) -> tuple:
-    """Generalized twiddle block T[j, t] = exp(sign·2πi·j·t/n), shape (f, m),
-    for an arbitrary root order ``n`` (≥ f·m).  Used by the global engine's
-    factored twiddle: W_n^{k1·n2} with k1 = k1a + a·k2a splits into
-    T(a, g2; n)[k1a, n2] · T(128, g2; n/a)[k2a, n2] — two small rank-
-    structured tables replacing the dense (g2, g1) array."""
-    j = np.arange(f, dtype=np.float64)[:, None]
-    t = np.arange(m, dtype=np.float64)[None, :]
-    jt = np.mod(j * t, n)
-    theta = (2.0 * np.pi / n) * jt
-    return np.cos(theta), np.array(sign, np.float64) * np.sin(theta)
-
-
-def twiddles_n(
-    f: int, m: int, n: int, sign: int, dtype
-) -> tuple[np.ndarray, np.ndarray]:
-    re, im = _twiddles_n_f64(f, m, n, sign)
-    return re.astype(dtype), im.astype(dtype)
-
-
-def interleaved_dft_matrix(
-    n: int, sign: int, dtype, scale: float = 1.0, chunk: int | None = None
-) -> np.ndarray:
-    """Real (chunk, chunk) matrix computing interleaved-complex DFTs.
-
-    For interleaved storage z[2j]=re, z[2j+1]=im, the complex matmul
-    y = x·W is the single real matmul z_out = z_in · V with
-
-        V[2j, 2k]   =  Re W[j,k]      V[2j, 2k+1] = Im W[j,k]
-        V[2j+1, 2k] = -Im W[j,k]      V[2j+1,2k+1] = Re W[j,k]
-
-    so one MXU pass performs deinterleave + DFT + reinterleave at the same
-    flop count as the four-plane-matmul form.  When ``chunk > 2n`` the
-    (2n, 2n) block is tiled along the diagonal, processing chunk/2n packed
-    transforms per lane group — full MXU utilization for tiny n.  ``scale``
-    is folded in for free.
-    """
-    wr, wi = _dft_matrix_f64(n, sign)
-    v = np.zeros((2 * n, 2 * n), dtype=np.float64)
-    v[0::2, 0::2] = wr
-    v[0::2, 1::2] = wi
-    v[1::2, 0::2] = -wi
-    v[1::2, 1::2] = wr
-    v *= scale
-    if chunk is None or chunk == 2 * n:
-        return v.astype(dtype)
-    reps = chunk // (2 * n)
-    out = np.zeros((chunk, chunk), dtype=np.float64)
-    for r in range(reps):
-        s = r * 2 * n
-        out[s : s + 2 * n, s : s + 2 * n] = v
-    return out.astype(dtype)
 
 
 def bluestein_chirp(n: int, sign: int, dtype) -> tuple[np.ndarray, np.ndarray]:

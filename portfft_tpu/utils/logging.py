@@ -2,16 +2,13 @@
 
 Analogue of the reference's logging layer (common/logging.hpp:36-446):
 * compile-time gates become import-time env flags (`PORTFFT_LOG_TRACES`,
-  `PORTFFT_LOG_WARNINGS`, `PORTFFT_LOG_DUMPS`) — same variable names as the
-  reference's runtime masks (logging.hpp:36-73);
+  `PORTFFT_LOG_WARNINGS`) — same variable names as the reference's runtime
+  masks (logging.hpp:36-73);
 * `log_function_entry` decorator ≈ PORTFFT_LOG_FUNCTION_ENTRY;
 * `trace` / `warn` ≈ PORTFFT_LOG_TRACE / PORTFFT_LOG_WARNING;
-* device-side data dumps (log_dump_local/private, logging.hpp:169-213) map
-  to `dump_array`, and to interpreter-mode Pallas runs plus
-  `jax.debug.print` inside kernels;
 * `profiler_trace` wraps a block in a jax.profiler trace context (the
-  reference's profiling story is event timestamps; on TPU the native tool
-  is the XLA profiler).
+  reference's profiling story is event timestamps; here the native tool is
+  the XLA profiler).
 """
 
 from __future__ import annotations
@@ -37,7 +34,6 @@ def _env_flag(name: str) -> bool:
 
 TRACES_ENABLED = _env_flag("PORTFFT_LOG_TRACES")
 WARNINGS_ENABLED = _env_flag("PORTFFT_LOG_WARNINGS") or TRACES_ENABLED
-DUMPS_ENABLED = _env_flag("PORTFFT_LOG_DUMPS")
 
 if TRACES_ENABLED:
     logger.setLevel(logging.DEBUG)
@@ -76,15 +72,6 @@ def log_function_entry(fn):
             )
 
     return wrapper
-
-
-def dump_array(tag: str, arr, limit: int = 16) -> None:
-    """Data dump (reference log_dump_local/private, logging.hpp:169-213)."""
-    if DUMPS_ENABLED:
-        import numpy as np
-
-        flat = np.asarray(arr).reshape(-1)
-        logger.debug(f"dump {tag}: shape={arr.shape} head={flat[:limit]}")
 
 
 @contextlib.contextmanager

@@ -7,7 +7,7 @@ mismatches) and :class:`UnsupportedConfiguration` (valid but outside the
 supported envelope).
 
 Differences from the reference envelope (deliberate supersets):
-* Arbitrary strides/distances are supported at every size here (the TPU
+* Arbitrary strides/distances are supported at every size here (the
   executor canonicalizes layouts with a gather prologue), so the
   fits-in-subgroup restriction of descriptor_validation.hpp:67-80 is dropped.
 * Large prime sizes fall back to Bluestein instead of throwing.
@@ -203,7 +203,7 @@ def _validate_layout(desc) -> None:
 
     Multi-dimensional transforms require the default (packed) layout in both
     domains, as in the reference.  The reference's additional restriction of
-    UNPACKED layouts to subgroup-fitting sizes is NOT applied — the TPU
+    UNPACKED layouts to subgroup-fitting sizes is NOT applied — the
     executor supports arbitrary strides at any size via gather prologues.
     """
     if len(desc.lengths) > 1:

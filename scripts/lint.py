@@ -14,7 +14,10 @@ import ast
 import pathlib
 import sys
 
-ROOTS = ["portfft_tpu", "tests", "scripts", "bench.py", "__graft_entry__.py"]
+ROOTS = [
+    "portfft_tpu", "tests", "scripts", "bench.py", "chip_smoke.py",
+    "__graft_entry__.py",
+]
 
 
 def check_file(path: pathlib.Path) -> list[str]:

@@ -71,38 +71,6 @@ def test_device_info_logged():
     d = jax.devices()[0]
     print(
         f"device={getattr(d, 'device_kind', '?')} platform={d.platform} "
-        f"config={cfg.name} lane={cfg.lane} sublane={cfg.sublane} "
-        f"vmem={cfg.vmem_bytes} hbm_gbps={cfg.hbm_gbps}"
+        f"config={cfg}"
     )
-    assert cfg.lane == 128
-
-
-def test_in_kernel_dumps(monkeypatch, capfd):
-    """PORTFFT_LOG_DUMPS-gated in-kernel dumps (reference log_dump_local/
-    private, logging.hpp:169-213): lines appear when the flag is on, and the
-    gate is trace-time (no ops emitted when off)."""
-    import numpy as np
-
-    from portfft_tpu import Descriptor
-    from portfft_tpu.utils import logging as plog
-
-    x = np.random.default_rng(0).standard_normal(32 * 128).astype(
-        np.complex64
-    ) + 0j
-
-    monkeypatch.setattr(plog, "DUMPS_ENABLED", True)
-    plan = Descriptor(lengths=[128], number_of_transforms=32).commit(
-        use_pallas=True
-    )
-    plan._raw_fast.clear()  # route through the plane kernel
-    plan.compute_forward(x)
-    out = capfd.readouterr().out
-    assert "[pfft dump]" in out and "direct.in" in out
-
-    monkeypatch.setattr(plog, "DUMPS_ENABLED", False)
-    plan2 = Descriptor(lengths=[128], number_of_transforms=32).commit(
-        use_pallas=True
-    )
-    plan2._raw_fast.clear()
-    plan2.compute_forward(x)
-    assert "[pfft dump]" not in capfd.readouterr().out
+    assert cfg.max_factor == 128

@@ -1,12 +1,16 @@
 """The bench driver's round-robin group protocol (bench.bench_group).
 
-The attached chip's streaming rate drifts minute-to-minute, so the bench
-interleaves timing bursts across a group's configs instead of giving each
-config one contiguous window (reference protocol: launch_bench.hpp:50-145
-measures contiguously — the interleave is a deliberate deviation for a
-noisy shared chip; the per-config min over rounds keeps the metric).
+The bench interleaves timing bursts across a group's configs instead of
+giving each config one contiguous window (reference protocol:
+launch_bench.hpp:50-145 measures contiguously — the interleave keeps slow
+drift of a shared card from landing on one config; the per-config min over
+rounds keeps the metric).  These run the protocol on the CPU with a
+stand-in bandwidth of 3350 GB/s; the numbers mean nothing, the control
+flow does.
 """
 
+import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -17,16 +21,11 @@ import bench
 
 def test_bench_group_round_robin_results():
     configs = [("tiny16", 16, 8), ("tiny64", 64, 4)]
-    results, ceiling = bench.bench_group(configs, 819.0, None, 0.0)
+    results = bench.bench_group(configs, 3350.0)
     assert set(results) == {"tiny16", "tiny64"}
     for r in results.values():
         assert r["gflops"] > 0 and 0 < r["eff"] < 1
         assert r["gbps"] > 0 and r["ms"] > 0
-        # the device-time subtraction may legitimately come up empty on a
-        # noisy host (t(2R) <= t(R)), but when present it must be positive
-        if r["dev_ms"] is not None:
-            assert r["dev_ms"] > 0 and r["dev_gbps"] > 0
-    assert ceiling == 0.0
 
 
 def test_bench_group_samples_interleaved(monkeypatch):
@@ -38,7 +37,7 @@ def test_bench_group_samples_interleaved(monkeypatch):
         real_sample(st)
 
     monkeypatch.setattr(bench, "sample_config", spy)
-    bench.bench_group([("a16", 16, 4), ("b32", 32, 4)], 819.0, None, 0.0)
+    bench.bench_group([("a16", 16, 4), ("b32", 32, 4)], 3350.0)
     # rounds alternate configs: a, b, a, b, ... never a,a,a..b,b,b
     assert order[: 2 * bench.SAMPLES] == ["a16", "b32"] * bench.SAMPLES
 
@@ -52,8 +51,8 @@ def test_bench_group_rotate_falls_back_to_singleton_groups(monkeypatch):
         return real_prepare(name, n, batch, rotate)
 
     monkeypatch.setattr(bench, "prepare_config", spy)
-    results, _ = bench.bench_group(
-        [("a16", 16, 4), ("b32", 32, 4)], 819.0, None, 0.0, rotate=2
+    results = bench.bench_group(
+        [("a16", 16, 4), ("b32", 32, 4)], 3350.0, rotate=2
     )
     assert set(results) == {"a16", "b32"}
     assert prepared == [("a16", 2), ("b32", 2)]
@@ -68,14 +67,11 @@ def test_bench_extra_round_robin(monkeypatch, capsys):
     monkeypatch.setattr(bench, "MULTIDIM_CONFIGS", [("md_8x16", [8, 16], 2)])
     monkeypatch.setattr(bench, "RUNS_TO_AVERAGE", 2)
 
-    class Cfg:
-        hbm_gbps = 100.0
-
-    recorded = bench.bench_extra(Cfg())
+    recorded = bench.bench_extra()
     err = capsys.readouterr().err
     for name in ("backward_tiny", "strided_tiny", "real_tiny", "md_8x16"):
         assert name in err, err
-        # every extra-set config lands in the round JSON (VERDICT r3 #4)
+        # every extra-set config lands in the JSON line
         assert recorded[name]["ms"] > 0 and recorded[name]["gflops"] >= 0
     assert "FAILED" not in err, err
 
@@ -89,38 +85,21 @@ def test_bench_group_survives_failing_config(monkeypatch):
         return real_prepare(name, n, batch, rotate)
 
     monkeypatch.setattr(bench, "prepare_config", boom)
-    results, _ = bench.bench_group(
-        [("bad", 7, 3), ("a16", 16, 4)], 819.0, None, 0.0
-    )
+    results = bench.bench_group([("bad", 7, 3), ("a16", 16, 4)], 3350.0)
     assert set(results) == {"a16"}
 
 
-def test_prepare_config_device_loop_chain(monkeypatch):
-    """The device-loop timer (prepare_config "chain"): RUNS_TO_AVERAGE
-    raw-fastpath applications chained inside one executable — built
-    whenever the plan has a shape-preserving raw fast path, and exercised
-    by sample_config without error."""
-    import portfft_tpu as pfft
-
-    orig = pfft.Descriptor.commit
-
-    def commit_pallas(self, **kw):
-        kw.setdefault("use_pallas", True)  # interpret-mode kernels on CPU
-        return orig(self, **kw)
-
-    monkeypatch.setattr(pfft.Descriptor, "commit", commit_pallas)
-    monkeypatch.setattr(bench, "RUNS_TO_AVERAGE", 2)
-    st = bench.prepare_config("tiny", 256, 64)
-    assert st["chain"] is not None, "raw fast path should chain at n=256"
-    # chain_2r equals chain_r applied twice (statically unrolled pair)
-    import numpy as np
-
-    chain_r, chain_2r = st["chain"]
-    one = np.asarray(chain_r(st["inputs"][0], st["bank"]))
-    two = np.asarray(chain_2r(st["inputs"][0], st["bank"]))
-    import jax.numpy as jnp
-
-    again = np.asarray(chain_r(jnp.asarray(one), st["bank"]))
-    assert np.allclose(two, again, rtol=1e-4, atol=1e-3)
-    bench.sample_config(st)
-    assert st["times"]
+def test_bench_refuses_cpu():
+    """main() measures a GPU only: on the CPU it exits non-zero before
+    timing anything."""
+    res = subprocess.run(
+        [sys.executable, str(Path(bench.__file__))],
+        capture_output=True,
+        text=True,
+        timeout=300,
+        env={**os.environ, "JAX_PLATFORMS": "cpu"},
+        cwd=str(Path(bench.__file__).parent),
+    )
+    assert res.returncode != 0
+    assert res.stdout.strip() == ""
+    assert "GPU" in res.stderr

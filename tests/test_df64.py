@@ -2,7 +2,7 @@
 
 The reference skips fp64 on devices without the aspect; the df64 path is
 an opt-in extension giving ~1e-14 relative error from f32 hardware via
-error-free transformations.  These tests run the same executor the TPU
+error-free transformations.  These tests run the same executor any device
 uses (pure jnp, backend-agnostic)."""
 
 import numpy as np
@@ -163,8 +163,8 @@ def test_df64_naive_prime_stage():
     y = plan.compute_forward(x.reshape(-1).astype(np.complex128))
     ref = np.fft.fft(x).reshape(-1)
     rel = np.linalg.norm(np.asarray(y).reshape(-1) - ref) / np.linalg.norm(ref)
-    # CPU runs the naive stage as fori_loop at reduced (~1e-8) precision;
-    # the TPU path unrolls and keeps full df64 (see df64._dft_factor)
+    # the naive stage runs as fori_loop at reduced (~1e-8) precision on the
+    # CPU (see df64._dft_factor)
     assert rel < 1e-7, rel
 
 

@@ -1,14 +1,12 @@
 """fp64 feature-matrix sweep.
 
 The reference instantiates its ENTIRE FFT test suite in double precision
-(/root/reference/test/unit_test/fft_double.cpp, the per-precision
-instantiation macros of instantiate_fft_tests.hpp:375-403) — round-4
-VERDICT missing #3: this repo's fp64 coverage stopped at a dozen
-size-only tests.  This file runs the feature matrix (offsets, strided
-layouts, batch-interleaved, split-complex storage, in-place placement,
-scales, REAL domain, multi-dim) under np.float64 on the CPU backend
-(tests/conftest.py); on TPU fp64 commits raise UnsupportedConfiguration
-by design (df64 emulation covers the traceable path, test_df64.py).
+(reference test/unit_test/fft_double.cpp, the per-precision instantiation
+macros of instantiate_fft_tests.hpp:375-403).  This file runs the feature
+matrix (offsets, strided layouts, batch-interleaved, split-complex
+storage, in-place placement, scales, REAL domain, multi-dim) under
+np.float64 with ``jax_enable_x64`` (tests/conftest.py); the double-double
+emulation has its own suite (test_df64.py).
 """
 
 import numpy as np

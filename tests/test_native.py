@@ -68,8 +68,8 @@ def test_global_split_matches_python(lib):
     cfg = DeviceConfig()
     for n in [1 << 17, 1 << 20, 9800 * 16]:
         nat = native.global_split(
-            n, cfg.max_factor, cfg.direct_threshold, cfg.sublane, 4,
-            cfg.vmem_budget, int(cfg.vmem_bytes * 3 / 4),
+            n, cfg.max_factor, cfg.direct_threshold, cfg.fused_rows, 4,
+            cfg.fused_budget_bytes, cfg.global_pass_budget_bytes,
         )
         py = _global_split(n, cfg, 4)
         assert nat == py, (n, nat, py)

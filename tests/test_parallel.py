@@ -96,13 +96,11 @@ def test_distributed_2d_mesh_dp_sp(devices):
     assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-5
 
 
-def test_batch_parallel_with_pallas_leaf(devices):
-    """shard_map + Pallas-kernel combination (interpret mode on CPU): the
-    exact kernel path TPU pods run — round-2 VERDICT missing #5 (the
-    sharded+Pallas combination previously had zero coverage)."""
+def test_batch_parallel_fused_level(devices):
+    """Batch sharding of a FUSED-level plan (two-stage chain [8, 128])."""
     mesh = make_mesh((8,), ("dp",))
     desc = Descriptor(lengths=[1024], number_of_transforms=16)
-    plan = desc.commit(use_pallas=True)
+    plan = desc.commit()
     rng = np.random.default_rng(3)
     xr = rng.uniform(-1, 1, (16, 1024)).astype(np.float32)
     xi = rng.uniform(-1, 1, (16, 1024)).astype(np.float32)
@@ -112,9 +110,9 @@ def test_batch_parallel_with_pallas_leaf(devices):
     assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-5
 
 
-def test_distributed_fft_with_pallas_leaf(devices):
+def test_distributed_fft_two_rows(devices):
     mesh = make_mesh((8,), ("sp",))
-    dfft = DistributedFFT(4096, mesh, use_pallas=True)
+    dfft = DistributedFFT(4096, mesh)
     rng = np.random.default_rng(4)
     b = 2
     xr = rng.uniform(-1, 1, (b, 4096)).astype(np.float32)
@@ -225,14 +223,12 @@ def test_distributed_commit_skips_single_device_plan():
     assert rel < 1e-4, rel
 
 
-def test_distributed_large_seq_with_pallas_leaf(devices):
-    """Stretch (round-3 VERDICT #10): a 2^22-point sequence-sharded
-    transform with Pallas leaf kernels on the 8-device interpret mesh —
-    the full TPU-pod configuration at a size whose dense single-device
-    twiddle bank alone would be 128 MB."""
+def test_distributed_large_seq(devices):
+    """A 2^22-point sequence-sharded transform on the 8-device mesh — a
+    size whose dense single-device twiddle bank alone would be 128 MB."""
     mesh = make_mesh((8,), ("sp",))
     n = 1 << 22
-    dfft = DistributedFFT(n, mesh, use_pallas=True)
+    dfft = DistributedFFT(n, mesh)
     rng = np.random.default_rng(7)
     xr = rng.uniform(-1, 1, (1, n)).astype(np.float32)
     xi = rng.uniform(-1, 1, (1, n)).astype(np.float32)
@@ -300,3 +296,59 @@ def test_commit_mesh_seq_axis_rejects_real_and_md(devices):
         Descriptor(
             lengths=[64, 64], number_of_transforms=8
         ).commit(mesh=mesh, seq_axis="sp")
+
+
+def _assert_replicated(bank, mesh):
+    assert bank
+    for arr in bank.values():
+        assert arr.sharding.is_fully_replicated
+        assert arr.sharding.device_set == set(mesh.devices.flat)
+
+
+def test_distributed_fft_bank_replicated_over_mesh(devices):
+    """The sub-plan tables sit once on every device of the mesh instead of
+    on one device (which would broadcast them on every call)."""
+    mesh = make_mesh((8,), ("sp",))
+    dfft = DistributedFFT(4096, mesh)
+    _assert_replicated(dfft._bank_arrays, mesh)
+    # the large inter-factor table is sharded, not replicated
+    tw_r, _ = dfft._tw[-1]
+    assert len(tw_r.sharding.device_set) == 8
+    assert not tw_r.sharding.is_fully_replicated
+
+
+def test_batch_parallel_bank_replicated_over_mesh(devices):
+    from portfft_tpu.parallel.sharded import replicated_bank
+
+    mesh = make_mesh((2, 4), ("dp", "sp"))
+    plan = Descriptor(lengths=[4096], number_of_transforms=8).commit()
+    # single-device commit: the bank starts on one device
+    assert all(
+        len(a.sharding.device_set) == 1 for a in plan._bank_arrays.values()
+    )
+    _assert_replicated(replicated_bank(plan._bank_arrays, mesh), mesh)
+
+
+def test_batch_parallel_chunks_per_shard_without_collectives(devices):
+    """Batch chunking is decided on each device's own slice: with a chunk
+    budget of two rows, each device maps over its 8 rows locally, and the
+    compiled program moves no data between devices."""
+    from portfft_tpu.config import DeviceConfig
+
+    mesh = make_mesh((8,), ("dp",))
+    n, b = 256, 64
+    plan = Descriptor(lengths=[n], number_of_transforms=b).commit(
+        device=DeviceConfig(hbm_chunk_bytes=2 * 16 * 4 * n)
+    )
+    assert plan.chunk_rows(b // 8) == 2
+    fn = batch_parallel(plan, mesh)
+    rng = np.random.default_rng(9)
+    xr = rng.uniform(-1, 1, (b, n)).astype(np.float32)
+    xi = rng.uniform(-1, 1, (b, n)).astype(np.float32)
+    hlo = jax.jit(fn).lower(xr, xi).compile().as_text()
+    for op in ("all-gather", "all-to-all", "collective-permute", "all-reduce"):
+        assert op not in hlo, op
+    yr, yi = fn(jnp.asarray(xr), jnp.asarray(xi))
+    ref = np.fft.fft(xr + 1j * xi, axis=1)
+    got = np.asarray(yr) + 1j * np.asarray(yi)
+    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-5

@@ -1,11 +1,10 @@
 """Large-size strided (UNPACKED) layout tests.
 
-Round-2 VERDICT missing #2: the materialized-index gather capped strided
-layouts at toy sizes (no test beyond N=64).  The regular-rectangle path
-(committed.py ``_regular_1d``) now handles stride/distance layouts with
-reshape + strided slice + masked merge — pure streaming ops — so strided
-transforms are exercised here at GLOBAL-level sizes.  Reference
-counterpart: the Strided suites of instantiate_fft_tests.hpp:237-319.
+The regular-rectangle path (committed.py ``_regular_1d``) handles
+stride/distance layouts with reshape + strided slice + masked merge — pure
+streaming ops, no index arrays — so strided transforms are exercised here
+at GLOBAL-level sizes.  Reference counterpart: the Strided suites of
+instantiate_fft_tests.hpp:237-319.
 """
 
 import numpy as np
@@ -226,16 +225,12 @@ def test_irregular_scatter_indices_in_trace():
         assert np.asarray(v).nbytes < (1 << 16)
 
 
-def test_strided_raw_fastpath_registers_and_computes():
-    """Regular strided rectangles with 128-multiple batch register the
-    Pallas destride wrapper entry (round-5 VERDICT #3) and compute
-    identically to the XLA regular-rectangle path."""
+def test_strided_input_dense_rectangle():
+    """A stride-2 input rectangle over 128 rows (the regular-rectangle
+    gather) matches the oracle."""
     n, batch, stride = 512, 128, 2
     desc = _strided_desc(n, batch, stride)
-    plan = desc.commit(use_pallas=True)
-    entry = plan._raw_fast.get(Direction.FORWARD)
-    assert entry is not None and entry[0] == "strided1d", entry
-    assert entry[2] == (stride, (n - 1) * stride + 1 + 0) or entry[2][0] == stride
+    plan = desc.commit()
     rng = np.random.default_rng(4)
     count = desc.get_input_count(Direction.FORWARD)
     buf = rng.uniform(-1, 1, 2 * count).astype(np.float32)
@@ -252,9 +247,8 @@ def test_strided_raw_fastpath_registers_and_computes():
     assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < tol
 
 
-def test_strided_output_raw_fastpath():
-    """Strided OUTPUT layouts whose rectangle the restride kernel tiles
-    register the wrapper too; gaps come back zero (library-allocated
+def test_strided_output_zero_fills_gaps():
+    """A strided OUTPUT rectangle: gaps come back zero (library-allocated
     output buffer semantics)."""
     n, batch, stride = 512, 128, 2
     dist = stride * n  # restride needs s*ct | dist
@@ -266,10 +260,7 @@ def test_strided_output_raw_fastpath():
         backward_strides=[stride],
         backward_distance=dist,
     )
-    plan = desc.commit(use_pallas=True)
-    entry = plan._raw_fast.get(Direction.FORWARD)
-    assert entry is not None and entry[0] == "strided1d", entry
-    assert entry[3] == (stride, dist)
+    plan = desc.commit()
     rng = np.random.default_rng(5)
     x = (
         rng.uniform(-1, 1, (batch, n)) + 1j * rng.uniform(-1, 1, (batch, n))
